@@ -1,0 +1,98 @@
+"""Weights between the JAX package and the port.
+
+:func:`state_dict_from_jax` turns a JAX params tree (nested dicts of
+numpy arrays, the layout ``scda_tpu.models.faster_rcnn.init_params``
+returns) into the port's state dict:
+
+  * ``vgg16`` reproduces ``scda_tpu.train.torch_convert.
+    export_reference_detector``: HWIO -> OIHW conv kernels, (in, out) ->
+    (out, in) linears, and the RPN cls channels permuted from the JAX
+    head's anchor-major ``a * 2 + c`` to the reference's class-major
+    ``c * A + a``;
+  * ``tiny`` maps the same way (the exporter raises on it): convs
+    ``conv0..3`` -> ``RCNN_base.{0,3,6,9}``, ``head/fc`` -> ``RCNN_top.0``.
+
+:func:`load_reference_checkpoint` loads a reference-layout ``.pth``
+(``{'model': state_dict}`` or a bare state dict) with
+``weights_only=True``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from scda_tpu_torch.models.backbones.vgg import VGG16_LAYOUT
+
+_TINY_CONV_INDEX = {0: 0, 1: 3, 2: 6, 3: 9}
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, np.float32)
+
+
+def _conv(k_hwio) -> np.ndarray:
+    return np.transpose(_f32(k_hwio), (3, 2, 0, 1))
+
+
+def _linear(k_in_out) -> np.ndarray:
+    return np.transpose(_f32(k_in_out), (1, 0))
+
+
+def state_dict_from_jax(params: Mapping[str, Any], backbone: str,
+                        num_anchors: int = 9) -> Dict[str, np.ndarray]:
+    """JAX params tree -> the port's state dict (numpy values)."""
+    sd: Dict[str, np.ndarray] = {}
+    if backbone == "vgg16":
+        for item in VGG16_LAYOUT:
+            if item == "M":
+                continue
+            idx, _ = item
+            p = params["backbone"][f"conv{idx}"]
+            sd[f"RCNN_base.{idx}.weight"] = _conv(p["kernel"])
+            sd[f"RCNN_base.{idx}.bias"] = _f32(p["bias"])
+        for torch_i, ours in ((0, "fc6"), (3, "fc7")):
+            p = params["head"][ours]
+            sd[f"RCNN_top.{torch_i}.weight"] = _linear(p["kernel"])
+            sd[f"RCNN_top.{torch_i}.bias"] = _f32(p["bias"])
+    elif backbone == "tiny":
+        for i, torch_i in _TINY_CONV_INDEX.items():
+            p = params["backbone"][f"conv{i}"]
+            sd[f"RCNN_base.{torch_i}.weight"] = _conv(p["kernel"])
+            sd[f"RCNN_base.{torch_i}.bias"] = _f32(p["bias"])
+        p = params["head"]["fc"]
+        sd["RCNN_top.0.weight"] = _linear(p["kernel"])
+        sd["RCNN_top.0.bias"] = _f32(p["bias"])
+    else:
+        raise NotImplementedError(
+            f"backbone {backbone!r} is not ported yet (ResNet: slice 4)")
+
+    rpn = params["rpn"]
+    sd["RCNN_rpn.RPN_Conv.weight"] = _conv(rpn["conv"]["kernel"])
+    sd["RCNN_rpn.RPN_Conv.bias"] = _f32(rpn["conv"]["bias"])
+    inv = np.asarray([a * 2 + c for c in range(2) for a in range(num_anchors)])
+    sd["RCNN_rpn.RPN_cls_score.weight"] = _conv(rpn["cls_score"]["kernel"])[inv]
+    sd["RCNN_rpn.RPN_cls_score.bias"] = _f32(rpn["cls_score"]["bias"])[inv]
+    sd["RCNN_rpn.RPN_bbox_pred.weight"] = _conv(rpn["bbox_pred"]["kernel"])
+    sd["RCNN_rpn.RPN_bbox_pred.bias"] = _f32(rpn["bbox_pred"]["bias"])
+    sd["RCNN_cls_score.weight"] = _linear(params["cls_score"]["kernel"])
+    sd["RCNN_cls_score.bias"] = _f32(params["cls_score"]["bias"])
+    sd["RCNN_bbox_pred.weight"] = _linear(params["bbox_pred"]["kernel"])
+    sd["RCNN_bbox_pred.bias"] = _f32(params["bbox_pred"]["bias"])
+    return sd
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load a reference-layout detector ``.pth`` into ``model``.
+
+    ``weights_only=True``: such files come from outside this package and
+    need nothing but tensors and dicts.  A ``module.`` prefix (saved from
+    ``nn.DataParallel``) is stripped.
+    """
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    sd = payload.get("model", payload) if isinstance(payload, dict) else payload
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    model.load_state_dict(sd)

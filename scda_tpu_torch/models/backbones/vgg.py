@@ -1,0 +1,92 @@
+"""VGG16 backbone and head (port of ``scda_tpu/models/backbones/vgg.py``).
+
+Both are ``nn.Sequential`` laid out as the reference lineage's modules,
+so a reference state dict loads unchanged: the backbone is torchvision
+VGG16 ``features[:-1]`` (``RCNN_base.N``, convs at 0, 2, 5, ... 28), the
+head ``classifier[:-1]`` (``RCNN_top.0`` fc6, ``RCNN_top.3`` fc7).
+
+They run NCHW in ``torch.channels_last``.  Weights may be float32 or
+bfloat16; each forward casts them to the compute dtype.  The stem
+(conv1_1, conv1_2, pool1) goes through kernel K3; conv3 .. conv5_3 are
+``F.conv2d`` (cuDNN on the card), as XLA ran them outside Pallas.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from scda_tpu_torch.ops.kernels.stem_kernel import vgg_stem_fused
+
+# (torch index, channels) per conv, "M" per maxpool: torchvision VGG16
+# features without its final pool.
+VGG16_LAYOUT = (
+    (0, 64), (2, 64), "M",
+    (5, 128), (7, 128), "M",
+    (10, 256), (12, 256), (14, 256), "M",
+    (17, 512), (19, 512), (21, 512), "M",
+    (24, 512), (26, 512), (28, 512),
+)
+
+
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+class VGG16Backbone(nn.Sequential):
+    """conv1_1 .. conv5_3: (B, 3, H, W) -> (B, 512, H/16, W/16)."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        layers = []
+        in_ch = 3
+        for item in VGG16_LAYOUT:
+            if item == "M":
+                layers.append(nn.MaxPool2d(2, 2))
+            else:
+                _, ch = item
+                layers += [nn.Conv2d(in_ch, ch, 3, padding=1), nn.ReLU()]
+                in_ch = ch
+        super().__init__(*layers)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.contiguous(memory_format=torch.channels_last)
+        conv1_1, conv1_2 = self[0], self[2]
+        y = vgg_stem_fused(x.permute(0, 2, 3, 1), _hwio(conv1_1), conv1_1.bias,
+                           _hwio(conv1_2), conv1_2.bias, dtype=dt)
+        x = y.permute(0, 3, 1, 2)
+        for layer in list(self)[5:]:  # after conv1_1, relu, conv1_2, relu, pool1
+            if isinstance(layer, nn.Conv2d):
+                x = F.conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
+                             padding=1)
+            elif isinstance(layer, nn.ReLU):
+                x = F.relu(x)
+            else:
+                x = F.max_pool2d(x, 2, 2)
+        return x
+
+
+class VGG16Head(nn.Sequential):
+    """fc6 / fc7 per-RoI head, dropout active only when ``train``."""
+
+    def __init__(self, in_features: int = 512 * 7 * 7,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(
+            nn.Linear(in_features, 4096), nn.ReLU(), nn.Dropout(0.5),
+            nn.Linear(4096, 4096), nn.ReLU(), nn.Dropout(0.5),
+        )
+        self.dtype = dtype
+
+    out_dim = 4096
+
+    def forward(self, pooled: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """pooled (R, P, P, C) NHWC, flattened in torch CHW order so fc6
+        keeps the reference's meaning."""
+        dt = self.dtype
+        x = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1).to(dt)
+        for fc in (self[0], self[3]):
+            x = F.relu(F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
+            x = F.dropout(x, 0.5, training=train)
+        return x

@@ -1,0 +1,117 @@
+"""Inference pipeline (port of ``scda_tpu/models/detector.py``:
+``make_anchors``, ``Detections`` and ``forward_inference``).
+
+Every size is fixed by the config and invalid slots are masked, as in
+the JAX package, so the whole forward stays on the device with no host
+synchronisation.  Training (``forward_train`` and the losses) comes with
+slice 2 of the port.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from scda_tpu.config import Config
+from scda_tpu_torch.core import boxes as box_ops
+from scda_tpu_torch.models.faster_rcnn import FasterRCNN, pool_rois
+from scda_tpu_torch.models.rpn import Proposals, propose
+from scda_tpu_torch.ops.nms import batched_nms
+
+
+def make_anchors(cfg: Config, feat_hw: Tuple[int, int],
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """All (h*w*A, 4) anchors of a feature map, built in numpy."""
+    base = box_ops.generate_base_anchors(
+        cfg.anchors.base_size, cfg.anchors.ratios, cfg.anchors.scales)
+    anchors = box_ops.shift_anchors(base, feat_hw[0], feat_hw[1],
+                                    cfg.model.feat_stride)
+    return torch.from_numpy(anchors).to(device)
+
+
+class Detections(NamedTuple):
+    """Fixed-size per-image detections (class ids are 1-based fg ids)."""
+
+    boxes: torch.Tensor    # (B, D, 4) in original image coords
+    scores: torch.Tensor   # (B, D)
+    classes: torch.Tensor  # (B, D) int64
+    valid: torch.Tensor    # (B, D) bool
+
+
+def postprocess(props: Proposals, cls_logits: torch.Tensor,
+                bbox_deltas: torch.Tensor, im_info: torch.Tensor,
+                cfg: Config) -> Detections:
+    """Head outputs -> detections: per-class decode, score threshold,
+    per-class NMS (``test.nms_thresh``), then the global top
+    ``max_per_image`` across classes, unscaled to original image coords."""
+    mc, tc = cfg.model, cfg.test
+    b, n, _ = props.boxes.shape
+    num_classes = mc.num_classes
+    probs = torch.softmax(cls_logits.reshape(b, n, num_classes), dim=-1)
+
+    if tc.bbox_reg:
+        if mc.class_agnostic:
+            deltas = bbox_deltas.reshape(b, n, 1, 4).expand(b, n, num_classes, 4)
+        else:
+            deltas = bbox_deltas.reshape(b, n, num_classes, 4)
+        stds = torch.tensor(cfg.train.roi_target.bbox_normalize_stds,
+                            dtype=torch.float32, device=deltas.device)
+        means = torch.tensor(cfg.train.roi_target.bbox_normalize_means,
+                             dtype=torch.float32, device=deltas.device)
+        deltas = deltas * stds + means
+        boxes = box_ops.bbox_transform_inv(props.boxes[:, :, None, :], deltas)
+        boxes = box_ops.clip_boxes(boxes, im_info[:, 0, None, None],
+                                   im_info[:, 1, None, None])
+    else:
+        boxes = props.boxes[:, :, None, :].expand(b, n, num_classes, 4)
+
+    # Per-class NMS over the foreground classes as one (B*C) batch.
+    fg = num_classes - 1
+    d_cls = tc.max_dets_per_class
+    cls_boxes = boxes[:, :, 1:, :].permute(0, 2, 1, 3).reshape(b * fg, n, 4)
+    cls_scores = probs[:, :, 1:].permute(0, 2, 1).reshape(b * fg, n)
+    cand_valid = (props.valid[:, None, :].expand(b, fg, n).reshape(b * fg, n)
+                  & (cls_scores > tc.score_thresh))
+    res = batched_nms(cls_boxes, cls_scores, iou_threshold=tc.nms_thresh,
+                      max_output=d_cls, valid=cand_valid)
+    kept_boxes = torch.gather(cls_boxes, 1,
+                              res.indices[..., None].expand(-1, -1, 4))
+    kept_scores = torch.gather(cls_scores, 1, res.indices)
+    kept_scores = torch.where(res.valid, kept_scores,
+                              torch.full_like(kept_scores, -1.0))
+
+    # Global cap across classes; the stable sort breaks ties toward the
+    # lower index, as lax.top_k does.
+    d = fg * d_cls
+    flat_boxes = kept_boxes.reshape(b, d, 4)
+    flat_scores = kept_scores.reshape(b, d)
+    flat_classes = torch.arange(1, num_classes, device=flat_scores.device)
+    flat_classes = flat_classes.repeat_interleave(d_cls).expand(b, d)
+    k = min(tc.max_per_image, d)
+    top_scores, top_idx = torch.sort(flat_scores, dim=-1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    db = torch.gather(flat_boxes, 1, top_idx[..., None].expand(b, k, 4))
+    dc = torch.gather(flat_classes, 1, top_idx)
+    db = db / im_info[:, 2][:, None, None]
+    return Detections(boxes=db, scores=top_scores, classes=dc,
+                      valid=top_scores > 0)
+
+
+@torch.no_grad()
+def forward_inference(model: FasterRCNN, image: torch.Tensor,
+                      im_info: torch.Tensor, cfg: Config) -> Detections:
+    """Test-time forward + postprocess.
+
+    image (B, H, W, 3) float NHWC canvas and im_info (B, 3), on the
+    model's device.  Proposals (``cfg.test.proposal``) -> RoI-Align ->
+    head -> :func:`postprocess`.
+    """
+    feat = model.features(image)
+    rpn_cls, rpn_bbox = model.rpn_out(feat)
+    anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]), feat.device)
+    props = propose(rpn_cls, rpn_bbox, anchors, im_info, cfg.test.proposal)
+    pooled = pool_rois(feat, props.boxes, None, cfg.model)
+    cls_logits, bbox_deltas = model.roi_head(pooled, train=False)
+    return postprocess(props, cls_logits, bbox_deltas, im_info, cfg)

@@ -1,0 +1,152 @@
+"""CUDA kernels of scda_tpu_torch against their plain PyTorch twins, on
+the card, at small and ragged shapes (chip_smoke.py covers the main
+path's shapes).  Marked ``gpu``; each test skips without a CUDA device.
+This file imports no JAX, so on a machine with a GPU and no JAX run it
+without the suite's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from scda_tpu_torch.ops.kernels import nms_kernel, roi_align_kernel, stem_kernel
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _boxes(rng, b, n, spread=200.0):
+    xy = rng.rand(b, n, 2) * spread
+    wh = rng.rand(b, n, 2) * 60 + 4
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,n,thr,max_out", [
+    (1, 1, 0.5, 4), (2, 63, 0.5, 10), (3, 64, 0.3, 64), (2, 65, 0.7, 7),
+    (1, 1000, 0.7, 300), (4, 300, 0.3, 0),
+])
+def test_nms_kernel_matches_twin(cuda, b, n, thr, max_out):
+    rng = np.random.RandomState(n)
+    boxes = torch.from_numpy(_boxes(rng, b, n, spread=100.0)).to(cuda)
+    valid = torch.from_numpy(rng.rand(b, n) < 0.8).to(cuda)
+    keep = nms_kernel.nms_sorted(boxes, valid, iou_threshold=thr,
+                                 max_output=max_out)
+    plain = nms_kernel.nms_sorted_plain(boxes, valid, iou_threshold=thr,
+                                        max_output=max_out)
+    assert torch.equal(keep, plain)
+
+
+def test_nms_kernel_identical_boxes(cuda):
+    """Exact duplicates (IoU 1) and tied scores: keep the first of each."""
+    base = torch.tensor([[0., 0., 10., 10.], [50., 50., 70., 60.]])
+    boxes = base.repeat(100, 1)[None].contiguous().to(cuda)
+    valid = torch.ones(1, 200, dtype=torch.bool, device=cuda)
+    keep = nms_kernel.nms_sorted(boxes, valid, iou_threshold=0.5,
+                                 max_output=50)
+    assert keep[0, :2].all() and int(keep.sum()) == 2
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,r,p,h,w,c", [
+    (1, 3, 7, 5, 9, 33), (2, 17, 5, 32, 64, 512), (1, 4, 7, 64, 160, 130),
+])
+def test_roi_align_kernel_matches_twin(cuda, feat_dtype, b, r, p, h, w, c):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    wy = torch.rand((b, r, p, h), generator=g, device=cuda)
+    wx = torch.rand((b, r, p, w), generator=g, device=cuda)
+    wy = wy * (wy > 0.7)            # sparse rows, some all zero
+    wx = wx * (wx > 0.7)
+    feat = torch.rand((b, h, w, c), generator=g, device=cuda).to(feat_dtype)
+    out = roi_align_kernel.roi_align_contract(wy, wx, feat)
+    ref = roi_align_kernel.roi_align_contract_plain(wy, wx, feat)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2), (2, 18, 10), (1, 34, 50),
+                                   (1, 64, 128)])
+def test_stem_kernel_matches_twin_f32(cuda, shape):
+    b, h, w = shape
+    rng = np.random.RandomState(h * w)
+    x = torch.from_numpy(rng.randn(b, h, w, 3).astype(np.float32)).to(cuda)
+    k1 = torch.from_numpy(rng.randn(3, 3, 3, 64).astype(np.float32) * 0.1).to(cuda)
+    b1 = torch.from_numpy(rng.randn(64).astype(np.float32) * 0.1).to(cuda)
+    k2 = torch.from_numpy(rng.randn(3, 3, 64, 64).astype(np.float32) * 0.05).to(cuda)
+    b2 = torch.from_numpy(rng.randn(64).astype(np.float32) * 0.1).to(cuda)
+    out = stem_kernel.vgg_stem_fused(x, k1, b1, k2, b2, dtype=torch.float32)
+    ref = stem_kernel.vgg_stem_plain(x, k1, b1, k2, b2, dtype=torch.float32)
+    assert out.shape == (b, h // 2, w // 2, 64)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_stem_kernel_bf16_y1_exact(cuda):
+    """bf16: y1 matches the twin bit for bit, so the pooled outputs differ
+    only by conv1_2's f32 summation order: at most one bf16 ulp."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(1, 40, 24, 3).astype(np.float32)).to(cuda)
+    k1 = torch.from_numpy(rng.randn(3, 3, 3, 64).astype(np.float32) * 0.3).to(cuda)
+    b1 = torch.zeros(64, device=cuda)
+    k2 = torch.from_numpy(rng.randn(3, 3, 64, 64).astype(np.float32) * 0.05).to(cuda)
+    b2 = torch.zeros(64, device=cuda)
+    out = stem_kernel.vgg_stem_fused(x, k1, b1, k2, b2).float()
+    ref = stem_kernel.vgg_stem_plain(x, k1, b1, k2, b2).float()
+    _, e = torch.frexp(torch.clamp(ref.abs(), min=2.0 ** -10))
+    ulp = torch.ldexp(torch.ones_like(ref), e - 8)
+    assert bool(((out - ref).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("backbone,hw", [("tiny", (128, 192)),
+                                         ("vgg16", (96, 160))])
+def test_slice_on_card_matches_cpu(cuda, backbone, hw):
+    """Batch of 2 through the whole f32 slice: card (kernels) against
+    CPU (plain twins), same weights; detections match by class, IoU >=
+    0.99 and |score| <= 1e-3 for at least 90% of them."""
+    from scda_tpu.config import get_config, replace_path
+    from scda_tpu_torch.evals.detect import detection_match_rate
+    from scda_tpu_torch.models.detector import forward_inference
+    from scda_tpu_torch.models.faster_rcnn import build_model, init_weights
+
+    cfg = replace_path(get_config("vgg16"), "model.backbone", backbone)
+    cfg = replace_path(cfg, "model.compute_dtype", "float32")
+    cfg = replace_path(cfg, "anchors.scales", (2.0, 4.0, 8.0))
+    cpu = build_model(cfg.model, cfg.anchors.num_anchors)
+    init_weights(cpu, torch.Generator().manual_seed(0), input_scale=1 / 64,
+                 he_heads=True)
+    gpu = build_model(cfg.model, cfg.anchors.num_anchors, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    h, w = hw
+    image = torch.from_numpy(rng.randn(2, h, w, 3).astype(np.float32) * 50)
+    info = torch.tensor([[h, w, 1.0], [h - 16, w - 32, 0.5]])
+    d_cpu = forward_inference(cpu, image, info, cfg)
+    d_gpu = forward_inference(gpu, image.to(cuda), info.to(cuda), cfg)
+    rate, n_cpu, _ = detection_match_rate(d_cpu, d_gpu)
+    assert n_cpu > 0 and rate >= 0.9
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    boxes = torch.zeros(1, 8, 4, device=cuda)
+    with pytest.raises(TypeError):
+        nms_kernel.nms_sorted(boxes.double(), torch.ones(1, 8, dtype=torch.bool,
+                                                         device=cuda),
+                              iou_threshold=0.5, max_output=2)
+    with pytest.raises(ValueError):
+        stem_kernel.vgg_stem_fused(torch.zeros(1, 3, 4, 3, device=cuda),
+                                   torch.zeros(3, 3, 3, 64, device=cuda),
+                                   torch.zeros(64, device=cuda),
+                                   torch.zeros(3, 3, 64, 64, device=cuda),
+                                   torch.zeros(64, device=cuda))
+    feat = torch.zeros(1, 4, 4, 8, device=cuda).permute(0, 2, 1, 3)
+    with pytest.raises(ValueError):
+        roi_align_kernel.roi_align_contract(torch.zeros(1, 2, 3, 4, device=cuda),
+                                            torch.zeros(1, 2, 3, 4, device=cuda),
+                                            feat)

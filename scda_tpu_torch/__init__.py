@@ -11,8 +11,9 @@ This package imports ``torch`` and never ``jax`` or ``flax``.  It shares
 the JAX package's host modules that import neither: ``scda_tpu.config``,
 ``scda_tpu.data``, ``scda_tpu.evals.voc_eval`` and ``scda_tpu.native``.
 
-Ported so far (slice 1): VGG16 / tiny Faster R-CNN inference in the
-``align`` and ``align_legacy`` pooling modes.
+Ported so far (slices 1 and 2): VGG16, ResNet-50/101/152 and tiny
+Faster R-CNN inference in the ``align`` and ``align_legacy`` pooling
+modes, with multiscale RoI pooling.
 """
 
 __version__ = "0.1.0"

@@ -9,8 +9,16 @@ returns) into the port's state dict:
     (out, in) linears, and the RPN cls channels permuted from the JAX
     head's anchor-major ``a * 2 + c`` to the reference's class-major
     ``c * A + a``;
+  * ``resnet50/101/152`` reproduce the exporter too: conv1/bn1 ->
+    ``RCNN_base.0/.1``, layer1..3 -> ``RCNN_base.4/.5/.6.{block}``,
+    layer4 -> ``RCNN_top.0.{block}``, each FrozenBatchNorm's scale, bias,
+    mean and var -> ``weight``, ``bias``, ``running_mean``,
+    ``running_var``;
   * ``tiny`` maps the same way (the exporter raises on it): convs
     ``conv0..3`` -> ``RCNN_base.{0,3,6,9}``, ``head/fc`` -> ``RCNN_top.0``.
+
+With ``multiscale_roi`` params, ``c3_proj`` (which the reference lineage
+does not have, so the exporter leaves it out) maps to ``RCNN_c3_proj``.
 
 :func:`load_reference_checkpoint` loads a reference-layout ``.pth``
 (``{'model': state_dict}`` or a bare state dict) with
@@ -24,6 +32,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from scda_tpu_torch.models.backbones.resnet import RESNET_DEPTHS
 from scda_tpu_torch.models.backbones.vgg import VGG16_LAYOUT
 
 _TINY_CONV_INDEX = {0: 0, 1: 3, 2: 6, 3: 9}
@@ -39,6 +48,37 @@ def _conv(k_hwio) -> np.ndarray:
 
 def _linear(k_in_out) -> np.ndarray:
     return np.transpose(_f32(k_in_out), (1, 0))
+
+
+def _bn(sd, prefix, p) -> None:
+    sd[f"{prefix}.weight"] = _f32(p["scale"])
+    sd[f"{prefix}.bias"] = _f32(p["bias"])
+    sd[f"{prefix}.running_mean"] = _f32(p["mean"])
+    sd[f"{prefix}.running_var"] = _f32(p["var"])
+
+
+def resnet_block(sd, prefix, p) -> None:
+    """One flax ``Bottleneck`` tree -> ``{prefix}.conv1.weight`` ..."""
+    for i in (1, 2, 3):
+        sd[f"{prefix}.conv{i}.weight"] = _conv(p[f"conv{i}"]["kernel"])
+        _bn(sd, f"{prefix}.bn{i}", p[f"bn{i}"])
+    if "downsample_conv" in p:
+        sd[f"{prefix}.downsample.0.weight"] = _conv(
+            p["downsample_conv"]["kernel"])
+        _bn(sd, f"{prefix}.downsample.1", p["downsample_bn"])
+
+
+def _resnet(sd, params, depth) -> None:
+    blocks = RESNET_DEPTHS[depth]
+    sd["RCNN_base.0.weight"] = _conv(params["backbone"]["conv1"]["kernel"])
+    _bn(sd, "RCNN_base.1", params["backbone"]["bn1"])
+    for li, n in enumerate(blocks[:3], start=1):
+        for bi in range(n):
+            resnet_block(sd, f"RCNN_base.{li + 3}.{bi}",
+                         params["backbone"][f"layer{li}"][f"block{bi}"])
+    for bi in range(blocks[3]):
+        resnet_block(sd, f"RCNN_top.0.{bi}",
+                     params["head"]["layer4"][f"block{bi}"])
 
 
 def state_dict_from_jax(params: Mapping[str, Any], backbone: str,
@@ -65,9 +105,10 @@ def state_dict_from_jax(params: Mapping[str, Any], backbone: str,
         p = params["head"]["fc"]
         sd["RCNN_top.0.weight"] = _linear(p["kernel"])
         sd["RCNN_top.0.bias"] = _f32(p["bias"])
+    elif backbone in ("resnet50", "resnet101", "resnet152"):
+        _resnet(sd, params, int(backbone[len("resnet"):]))
     else:
-        raise NotImplementedError(
-            f"backbone {backbone!r} is not ported yet (ResNet: slice 4)")
+        raise ValueError(f"unknown backbone {backbone!r}")
 
     rpn = params["rpn"]
     sd["RCNN_rpn.RPN_Conv.weight"] = _conv(rpn["conv"]["kernel"])
@@ -81,6 +122,9 @@ def state_dict_from_jax(params: Mapping[str, Any], backbone: str,
     sd["RCNN_cls_score.bias"] = _f32(params["cls_score"]["bias"])
     sd["RCNN_bbox_pred.weight"] = _linear(params["bbox_pred"]["kernel"])
     sd["RCNN_bbox_pred.bias"] = _f32(params["bbox_pred"]["bias"])
+    if "c3_proj" in params:
+        sd["RCNN_c3_proj.weight"] = _conv(params["c3_proj"]["kernel"])
+        sd["RCNN_c3_proj.bias"] = _f32(params["c3_proj"]["bias"])
     return sd
 
 
@@ -89,10 +133,12 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
 
     ``weights_only=True``: such files come from outside this package and
     need nothing but tensors and dicts.  A ``module.`` prefix (saved from
-    ``nn.DataParallel``) is stripped.
+    ``nn.DataParallel``) is stripped, and so are the ``num_batches_tracked``
+    counters of ``nn.BatchNorm2d`` in torchvision-lineage ResNet files
+    (the port's frozen BatchNorm has none).
     """
     payload = torch.load(path, map_location="cpu", weights_only=True)
     sd = payload.get("model", payload) if isinstance(payload, dict) else payload
     sd = {k[len("module."):] if k.startswith("module.") else k: v
-          for k, v in sd.items()}
+          for k, v in sd.items() if not k.endswith(".num_batches_tracked")}
     model.load_state_dict(sd)

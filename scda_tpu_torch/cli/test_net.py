@@ -3,6 +3,8 @@ build the detector, load a reference-layout ``.pth`` if given, run
 inference over a dataset, report VOC AP@0.5 per class and mAP.
 
     python -m scda_tpu_torch.cli.test_net --net vgg16 --dataset synthetic
+    python -m scda_tpu_torch.cli.test_net --net res101 \
+        --set model.multiscale_roi=true --dataset synthetic
 
 Not ported yet: Orbax checkpoints of the JAX trainer, device meshes and
 ``--vis`` overlays.
@@ -15,7 +17,12 @@ import json
 import os
 import sys
 
-_NET_TO_BACKBONE = {"vgg16": "vgg16", "tiny": "tiny"}
+# As the JAX CLI's (scda_tpu/cli/trainval.py), which imports jax.
+_NET_TO_PRESET = {"vgg16": "vgg16", "res50": "res50", "res101": "res101",
+                  "res152": "res152", "tiny": "vgg16"}
+_NET_TO_BACKBONE = {"vgg16": "vgg16", "res50": "resnet50",
+                    "res101": "resnet101", "res152": "resnet152",
+                    "tiny": "tiny"}
 
 
 def parse_args(argv=None):
@@ -59,7 +66,7 @@ def main(argv=None) -> int:
               "for the plain-PyTorch path)", file=sys.stderr)
         return 2
 
-    cfg = PRESETS["vgg16"]()
+    cfg = PRESETS[_NET_TO_PRESET[args.net]]()
     cfg = replace_path(cfg, "model.backbone", _NET_TO_BACKBONE[args.net])
     if args.synth_size:
         cfg = replace_path(cfg, "data.image_size", tuple(args.synth_size))

@@ -84,45 +84,66 @@ def run_inference(model: FasterRCNN, dataset: Dataset, cfg: Config, *,
     return dict(all_dets), ips
 
 
+def _same_box(box, box2, iou_min: float) -> bool:
+    """IoU (legacy +1 areas) >= ``iou_min``, or every coordinate within
+    0.01 px: a degenerate box (x2 < x1 - 1, which random weights can
+    decode) has no area, so only its coordinates can agree."""
+    if np.abs(box - box2).max() <= 1e-2:
+        return True
+    iw = max(0.0, min(box[2], box2[2]) - max(box[0], box2[0]) + 1.0)
+    ih = max(0.0, min(box[3], box2[3]) - max(box[1], box2[1]) + 1.0)
+    inter = iw * ih
+    area = ((box[2] - box[0] + 1.0) * (box[3] - box[1] + 1.0)
+            + (box2[2] - box2[0] + 1.0) * (box2[3] - box2[1] + 1.0))
+    return inter / max(area - inter, 1e-9) >= iou_min
+
+
 def detection_match_rate(dets_a, dets_b, *, iou_min: float = 0.99,
                          score_tol: float = 1e-3):
     """Agreement of two detection sets of the same images.
 
     ``dets_a``/``dets_b``: (boxes (B, D, 4), scores (B, D), classes
     (B, D), valid (B, D)) as numpy arrays or tensors, e.g. a
-    ``Detections`` of either package.  Valid detections match one to one
-    within an image when the class agrees, IoU >= ``iou_min`` and the
-    scores differ by at most ``score_tol``.  Returns (matched / the larger
+    ``Detections`` of either package.  Two valid detections may match
+    when image and class agree, the boxes agree (:func:`_same_box`) and
+    the scores differ by at most ``score_tol``; the count is a maximum
+    one-to-one matching (augmenting paths), so near-duplicate detections
+    cannot steal each other's partners.  Returns (matched / the larger
     count, count in a, count in b); near-tied scores may legitimately
     reorder, so this is a rate and not an equality.
     """
-    def listed(dets):
+    def grouped(dets):
         boxes, scores, classes, valid = (
             t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
             else np.asarray(t) for t in dets)
-        return [(boxes[i, j].astype(np.float64), float(scores[i, j]),
-                 int(classes[i, j]), i)
-                for i in range(valid.shape[0]) for j in np.nonzero(valid[i])[0]]
+        groups = defaultdict(list)
+        for i in range(valid.shape[0]):
+            for j in np.nonzero(valid[i])[0]:
+                groups[(i, int(classes[i, j]))].append(
+                    (boxes[i, j].astype(np.float64), float(scores[i, j])))
+        return groups, int(valid.sum())
 
-    a, b = listed(dets_a), listed(dets_b)
-    used = set()
+    ga, n_a = grouped(dets_a)
+    gb, n_b = grouped(dets_b)
     matched = 0
-    for box, score, cls, img in a:
-        for k, (box2, score2, cls2, img2) in enumerate(b):
-            if k in used or cls2 != cls or img2 != img:
-                continue
-            if abs(score - score2) > score_tol:
-                continue
-            iw = max(0.0, min(box[2], box2[2]) - max(box[0], box2[0]) + 1.0)
-            ih = max(0.0, min(box[3], box2[3]) - max(box[1], box2[1]) + 1.0)
-            inter = iw * ih
-            area = ((box[2] - box[0] + 1.0) * (box[3] - box[1] + 1.0)
-                    + (box2[2] - box2[0] + 1.0) * (box2[3] - box2[1] + 1.0))
-            if inter / max(area - inter, 1e-9) >= iou_min:
-                used.add(k)
-                matched += 1
-                break
-    return matched / max(len(a), len(b), 1), len(a), len(b)
+    for key, a in ga.items():
+        b = gb.get(key, [])
+        adj = [[k for k, (box2, s2) in enumerate(b)
+                if abs(s - s2) <= score_tol and _same_box(box, box2, iou_min)]
+               for box, s in a]
+        partner = {}   # index in b -> index in a
+
+        def augment(i, seen):
+            for k in adj[i]:
+                if k not in seen:
+                    seen.add(k)
+                    if k not in partner or augment(partner[k], seen):
+                        partner[k] = i
+                        return True
+            return False
+
+        matched += sum(augment(i, set()) for i in range(len(a)))
+    return matched / max(n_a, n_b, 1), n_a, n_b
 
 
 def evaluate_model(model: FasterRCNN, dataset: Dataset, cfg: Config, *,

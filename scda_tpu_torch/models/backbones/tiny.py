@@ -23,13 +23,17 @@ class TinyBackbone(nn.Sequential):
         super().__init__(*layers)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_pyramid: bool = False):
+        """With ``return_pyramid``, (the stride-8 map, the stride-16 map)."""
         dt = self.dtype
         x = x.to(dt).contiguous(memory_format=torch.channels_last)
-        for conv in list(self)[0::3]:
+        f8 = None
+        for i, conv in enumerate(list(self)[0::3]):
             x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
             x = F.max_pool2d(F.relu(x), 2, 2)
-        return x
+            if i == 2:
+                f8 = x
+        return (f8, x) if return_pyramid else x
 
 
 class TinyHead(nn.Sequential):

@@ -50,13 +50,15 @@ class VGG16Backbone(nn.Sequential):
         super().__init__(*layers)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_pyramid: bool = False):
+        """With ``return_pyramid``, (conv4_3's stride-8 map, conv5_3's)."""
         dt = self.dtype
         x = x.contiguous(memory_format=torch.channels_last)
         conv1_1, conv1_2 = self[0], self[2]
         y = vgg_stem_fused(x.permute(0, 2, 3, 1), _hwio(conv1_1), conv1_1.bias,
                            _hwio(conv1_2), conv1_2.bias, dtype=dt)
         x = y.permute(0, 3, 1, 2)
+        pools, f8 = 1, None
         for layer in list(self)[5:]:  # after conv1_1, relu, conv1_2, relu, pool1
             if isinstance(layer, nn.Conv2d):
                 x = F.conv2d(x, layer.weight.to(dt), layer.bias.to(dt),
@@ -64,8 +66,11 @@ class VGG16Backbone(nn.Sequential):
             elif isinstance(layer, nn.ReLU):
                 x = F.relu(x)
             else:
+                if pools == 3:
+                    f8 = x
                 x = F.max_pool2d(x, 2, 2)
-        return x
+                pools += 1
+        return (f8, x) if return_pyramid else x
 
 
 class VGG16Head(nn.Sequential):

@@ -1,10 +1,11 @@
 """Inference pipeline (port of ``scda_tpu/models/detector.py``:
-``make_anchors``, ``Detections`` and ``forward_inference``).
+``make_anchors``, ``Detections``, ``forward_inference`` and the
+multiscale pooling dispatch ``_pool_ms``).
 
 Every size is fixed by the config and invalid slots are masked, as in
 the JAX package, so the whole forward stays on the device with no host
 synchronisation.  Training (``forward_train`` and the losses) comes with
-slice 2 of the port.
+a later slice of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,9 +16,21 @@ import torch
 
 from scda_tpu.config import Config
 from scda_tpu_torch.core import boxes as box_ops
-from scda_tpu_torch.models.faster_rcnn import FasterRCNN, pool_rois
+from scda_tpu_torch.models.faster_rcnn import (
+    FasterRCNN, pool_rois, pool_rois_multiscale,
+)
 from scda_tpu_torch.models.rpn import Proposals, propose
 from scda_tpu_torch.ops.nms import batched_nms
+
+
+def _pool_ms(model: FasterRCNN, feat_fine: torch.Tensor,
+             feat: torch.Tensor, rois: torch.Tensor, mc) -> torch.Tensor:
+    """Multiscale pooling: with ``ms_proj_after_pool`` the lateral
+    projection follows pooling (a step with parameters, so the model's);
+    otherwise ``feat_fine`` arrives projected."""
+    if mc.ms_proj_after_pool:
+        return model.pool_multiscale(feat_fine, feat, rois)
+    return pool_rois_multiscale(feat_fine, feat, rois, mc)
 
 
 def make_anchors(cfg: Config, feat_hw: Tuple[int, int],
@@ -105,13 +118,21 @@ def forward_inference(model: FasterRCNN, image: torch.Tensor,
     """Test-time forward + postprocess.
 
     image (B, H, W, 3) float NHWC canvas and im_info (B, 3), on the
-    model's device.  Proposals (``cfg.test.proposal``) -> RoI-Align ->
-    head -> :func:`postprocess`.
+    model's device.  Proposals (``cfg.test.proposal``) -> RoI-Align (on
+    both pyramid levels with ``model.multiscale_roi``) -> head ->
+    :func:`postprocess`.
     """
-    feat = model.features(image)
+    mc = cfg.model
+    if mc.multiscale_roi:
+        feat_fine, feat = model.features_pyramid(image)
+    else:
+        feat_fine, feat = None, model.features(image)
     rpn_cls, rpn_bbox = model.rpn_out(feat)
     anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]), feat.device)
     props = propose(rpn_cls, rpn_bbox, anchors, im_info, cfg.test.proposal)
-    pooled = pool_rois(feat, props.boxes, None, cfg.model)
+    if mc.multiscale_roi:
+        pooled = _pool_ms(model, feat_fine, feat, props.boxes, mc)
+    else:
+        pooled = pool_rois(feat, props.boxes, None, mc)
     cls_logits, bbox_deltas = model.roi_head(pooled, train=False)
     return postprocess(props, cls_logits, bbox_deltas, im_info, cfg)

@@ -10,8 +10,10 @@ The public methods keep the JAX layouts (NHWC images and features);
 inside, modules run NCHW in ``torch.channels_last``, whose permuted view
 is the NHWC tensor without a copy.
 
-Ported: the ``vgg16`` and ``tiny`` backbones with ``align`` and
-``align_legacy`` pooling on grouped rois.
+Ported: the ``vgg16``, ``tiny`` and ``resnet50/101/152`` backbones with
+``align`` and ``align_legacy`` pooling on grouped rois, and multiscale
+RoI pooling (``multiscale_roi``) with the lateral projection before or
+after pooling (``ms_proj_after_pool``).
 """
 
 from __future__ import annotations
@@ -23,32 +25,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from scda_tpu.config import ModelConfig
+from scda_tpu_torch.models.backbones.resnet import (
+    FrozenBatchNorm2d, ResNetBackbone, ResNetC4Head,
+)
 from scda_tpu_torch.models.backbones.tiny import TinyBackbone, TinyHead
 from scda_tpu_torch.models.backbones.vgg import VGG16Backbone, VGG16Head
 from scda_tpu_torch.models.rpn import RPNHead
 from scda_tpu_torch.ops.roi_ops import (
-    roi_align_grouped, roi_align_legacy_grouped,
+    contract_axis_weights, roi_align_axis_weights, roi_align_grouped,
+    roi_align_legacy_grouped,
 )
 
 _POOLING_MODES = ("align", "align_legacy")
+_BACKBONES = ("vgg16", "tiny", "resnet50", "resnet101", "resnet152")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.backbone.startswith("resnet"):
-        raise NotImplementedError(
-            f"backbone {cfg.backbone!r}: ResNet comes with slice 4 of the "
-            "PyTorch port (see ROADMAP.md)")
-    if cfg.multiscale_roi:
-        raise NotImplementedError(
-            "model.multiscale_roi comes with slice 4 of the PyTorch port "
-            "(see ROADMAP.md)")
     if cfg.pooling_mode in ("pool", "crop"):
         raise NotImplementedError(
             f"pooling_mode {cfg.pooling_mode!r} is not ported yet (see "
             "ROADMAP.md); use 'align' or 'align_legacy'")
     if cfg.pooling_mode not in _POOLING_MODES:
         raise ValueError(f"unknown pooling_mode {cfg.pooling_mode!r}")
-    if cfg.backbone not in ("vgg16", "tiny"):
+    if cfg.backbone not in _BACKBONES:
         raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
@@ -60,16 +59,26 @@ class FasterRCNN(nn.Module):
         _check_ported(cfg)
         dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.dtype = dt
+        self.cfg = cfg
         p = cfg.pooling_size
         if cfg.backbone == "vgg16":
-            feat_ch = 512
+            feat_ch = f8_ch = 512
             self.RCNN_base = VGG16Backbone(dtype=dt)
             self.RCNN_top = VGG16Head(feat_ch * p * p, dtype=dt)
-        else:
-            feat_ch = 64
+        elif cfg.backbone == "tiny":
+            feat_ch, f8_ch = 64, 48
             self.RCNN_base = TinyBackbone(feat_ch, dtype=dt)
             self.RCNN_top = TinyHead(feat_ch * p * p, dtype=dt)
+        else:
+            depth = int(cfg.backbone[len("resnet"):])
+            feat_ch, f8_ch = 1024, 512
+            self.RCNN_base = ResNetBackbone(depth, dtype=dt)
+            self.RCNN_top = ResNetC4Head(depth, dtype=dt)
         self.RCNN_rpn = RPNHead(feat_ch, cfg.rpn_channels, num_anchors, dtype=dt)
+        if cfg.multiscale_roi:
+            # Lateral 1x1 projection of the stride-8 level to the stride-16
+            # channel count, so the RoI head is level-agnostic.
+            self.RCNN_c3_proj = nn.Conv2d(f8_ch, feat_ch, 1)
         head_dim = self.RCNN_top.out_dim
         self.RCNN_cls_score = nn.Linear(head_dim, cfg.num_classes)
         self.RCNN_bbox_pred = nn.Linear(
@@ -78,6 +87,41 @@ class FasterRCNN(nn.Module):
     def features(self, image: torch.Tensor) -> torch.Tensor:
         """Image (B, H, W, 3) -> base features (B, H/16, W/16, C)."""
         return self.RCNN_base(image.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def _c3_proj(self, x: torch.Tensor) -> torch.Tensor:
+        """The lateral 1x1 projection on NHWC ``x``, in the compute dtype."""
+        dt, conv = self.dtype, self.RCNN_c3_proj
+        w = conv.weight.reshape(conv.weight.shape[0], -1)
+        return F.linear(x.to(dt), w.to(dt), conv.bias.to(dt))
+
+    def features_pyramid(self, image: torch.Tensor):
+        """Image -> (stride-8, stride-16) NHWC feature pair for multiscale
+        RoI pooling.  The stride-8 level is projected here unless
+        ``ms_proj_after_pool`` moves the projection after pooling
+        (:meth:`pool_multiscale`)."""
+        f8, f16 = self.RCNN_base(image.permute(0, 3, 1, 2), return_pyramid=True)
+        f8, f16 = f8.permute(0, 2, 3, 1), f16.permute(0, 2, 3, 1)
+        if self.cfg.ms_proj_after_pool:
+            return f8, f16
+        return self._c3_proj(f8), f16
+
+    def pool_multiscale(self, f8_raw: torch.Tensor, f16: torch.Tensor,
+                        rois: torch.Tensor) -> torch.Tensor:
+        """Level-assigned RoI-Align with the lateral projection applied
+        after pooling (``ms_proj_after_pool``).
+
+        A 1x1 projection (W, b) commutes with RoI-Align, except that the
+        bias enters scaled by the bilinear weight mass ``wsum`` (1 for
+        interior rois, less where border samples drop):
+        ``align(proj(f)) = align(f) @ W + b * wsum``.  So the projected
+        fine level is ``proj(align(f)) + b * (wsum - 1)``.
+        """
+        pooled8, wsum = pool_fine_raw(f8_raw, rois, self.cfg)
+        proj = self._c3_proj(pooled8)
+        bias = self.RCNN_c3_proj.bias.to(self.dtype).float()
+        fine = ((wsum[..., None] - 1.0) * bias + proj.float()).to(proj.dtype)
+        return pool_rois_multiscale(None, f16, rois, self.cfg,
+                                    fine_override=fine)
 
     def rpn_out(self, feat: torch.Tensor):
         """(B, h, w, C) -> cls logits (B, h, w, A, 2), deltas (B, h, w, A, 4)."""
@@ -121,6 +165,50 @@ def pool_rois(
     return out.reshape((-1,) + tuple(out.shape[2:]))
 
 
+def pool_rois_multiscale(
+    f8: torch.Tensor | None,
+    f16: torch.Tensor,
+    rois: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    fine_override: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """FPN-style level-assigned RoI-Align (BASELINE config #5).
+
+    f8 (B, H/8, W/8, C) projected and f16 (B, H/16, W/16, C) NHWC, rois
+    (B, R, 4) in image coords.  A roi whose sqrt-area is below
+    ``ms_fine_threshold`` pools from the stride-8 level, the others from
+    stride 16: both levels are pooled (static shapes) and selected per
+    roi.  ``fine_override`` (B, R, P, P, C) supplies the pooled fine level
+    (:meth:`FasterRCNN.pool_multiscale`); ``f8`` may then be None.
+    Returns flat (B*R, P, P, C), as :func:`pool_rois`.
+    """
+    wh = (torch.clamp(rois[..., 2] - rois[..., 0], min=0.0)
+          * torch.clamp(rois[..., 3] - rois[..., 1], min=0.0))
+    fine = torch.sqrt(wh) < cfg.ms_fine_threshold            # (B, R)
+    kw = dict(output_size=cfg.pooling_size, sampling_ratio=cfg.sampling_ratio)
+    p16 = roi_align_grouped(f16, rois, spatial_scale=1.0 / 16.0, **kw)
+    p8 = (fine_override if fine_override is not None else
+          roi_align_grouped(f8, rois, spatial_scale=1.0 / 8.0, **kw))
+    out = torch.where(fine[..., None, None, None], p8, p16)
+    return out.reshape((-1,) + tuple(out.shape[2:]))
+
+
+def pool_fine_raw(f8: torch.Tensor, rois: torch.Tensor,
+                  cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stride-8 RoI-Align of the unprojected level f8 (B, H/8, W/8, C3),
+    and the bilinear weight mass that moves the projection's bias after
+    pooling.  Returns (pooled (B, R, P, P, C3), wsum (B, R, P, P) f32);
+    one set of axis weights serves both."""
+    _, h8, w8, _ = f8.shape
+    wy, wx = roi_align_axis_weights(rois, h8, w8,
+                                    output_size=cfg.pooling_size,
+                                    spatial_scale=1.0 / 8.0,
+                                    sampling_ratio=cfg.sampling_ratio)
+    wsum = wy.sum(-1)[..., :, None] * wx.sum(-1)[..., None, :]
+    return contract_axis_weights(wy, wx, f8), wsum
+
+
 def init_weights(model: FasterRCNN, generator: torch.Generator,
                  *, input_scale: float = 1.0, he_heads: bool = False) -> None:
     """Seeded random init, in place.
@@ -131,9 +219,26 @@ def init_weights(model: FasterRCNN, generator: torch.Generator,
     ReLU stack).  ``RCNN_cls_score`` / ``RCNN_bbox_pred``: N(0, 0.01) /
     N(0, 0.001) as the reference initialises them, or He-normal with
     ``he_heads`` so that random-weight scores spread out.
+
+    Frozen BatchNorms get near-identity statistics: weight and variance
+    uniform in [0.5, 1.5), bias and mean N(0, 0.05).  Each bottleneck's
+    ``bn3`` weight is damped by 0.1, as pretrained nets keep the residual
+    branch small: with O(1) branches, 33 residual adds grow a ResNet-101's
+    activations until rounding swamps any comparison.
     """
     first = True
     for name, mod in model.named_modules():
+        if isinstance(mod, FrozenBatchNorm2d):
+            n = mod.weight.shape[0]
+            with torch.no_grad():
+                mod.weight.copy_(torch.rand(n, generator=generator) + 0.5)
+                mod.bias.copy_(torch.randn(n, generator=generator) * 0.05)
+                mod.running_mean.copy_(
+                    torch.randn(n, generator=generator) * 0.05)
+                mod.running_var.copy_(torch.rand(n, generator=generator) + 0.5)
+                if name.endswith(".bn3"):
+                    mod.weight.mul_(0.1)
+            continue
         if not isinstance(mod, (nn.Conv2d, nn.Linear)):
             continue
         fan_in = mod.weight[0].numel()
@@ -148,7 +253,8 @@ def init_weights(model: FasterRCNN, generator: torch.Generator,
         w = torch.randn(mod.weight.shape, generator=generator) * std
         with torch.no_grad():
             mod.weight.copy_(w)
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
 
 
 def build_model(cfg: ModelConfig, num_anchors: int = 9, *,

@@ -118,7 +118,7 @@ def roi_align_axis_weights(
     return wy, wx
 
 
-def _contract_axis_weights(wy: torch.Tensor, wx: torch.Tensor,
+def contract_axis_weights(wy: torch.Tensor, wx: torch.Tensor,
                            features: torch.Tensor) -> torch.Tensor:
     """Both contractions through kernel K2 (f32 accumulation and an f32
     intermediate), cast back to the features' dtype."""
@@ -141,7 +141,7 @@ def roi_align_grouped(
         spatial_scale=spatial_scale, sampling_ratio=sampling_ratio,
         aligned=aligned,
     )
-    return _contract_axis_weights(wy, wx, features)
+    return contract_axis_weights(wy, wx, features)
 
 
 def _legacy_sample_coords(boxes: torch.Tensor, spatial_scale: float, p: int):
@@ -190,4 +190,4 @@ def roi_align_legacy_grouped(
     ys, xs = _legacy_sample_coords(boxes, spatial_scale, output_size)
     wy = _legacy_axis_weights(ys, height)
     wx = _legacy_axis_weights(xs, width)
-    return _contract_axis_weights(wy, wx, features)
+    return contract_axis_weights(wy, wx, features)

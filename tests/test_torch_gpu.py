@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from scda_tpu_torch.ops.kernels import nms_kernel, roi_align_kernel, stem_kernel
+from scda_tpu_torch.ops.kernels import (
+    bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -104,8 +106,53 @@ def test_stem_kernel_bf16_y1_exact(cuda):
     assert bool(((out - ref).abs() <= ulp).all())
 
 
+def _chain_weights(g, n, c, f, device, damp=1.0):
+    """Folded-weight stacks at He scale; ``damp`` scales the expand."""
+    def r(*shape, std):
+        return (torch.randn(shape, generator=g) * std).to(device)
+    return (r(n, c, f, std=(2.0 / c) ** 0.5), r(n, 1, f, std=0.05),
+            r(n, 9, f, f, std=(2.0 / (9 * f)) ** 0.5), r(n, 1, f, std=0.05),
+            r(n, f, c, std=damp * (2.0 / f) ** 0.5), r(n, 1, c, std=0.05))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,f,n", [
+    (2, 7, 9, 64, 3), (2, 5, 11, 128, 1), (1, 9, 5, 256, 1),
+    (2, 3, 3, 64, 1), (1, 33, 17, 128, 3), (2, 1, 1, 64, 1),
+])
+def test_bottleneck_chain_kernel_matches_twin(cuda, dtype, b, h, w, f, n):
+    """Ragged maps (M not a multiple of the 64-row tile, borders on every
+    side).  f32: rtol=atol=1e-4.  bf16: both round after each stage from
+    f32 sums taken in different orders, so a rounding may flip by one
+    ulp and propagate: max error <= 2^-6 * max|twin| (about 2 bf16 ulps
+    at the largest outputs)."""
+    c = 4 * f
+    g = torch.Generator().manual_seed(h * w + f + n)
+    x = torch.relu(torch.randn((b, h, w, c), generator=g)).to(cuda)
+    ws = _chain_weights(g, n, c, f, cuda)
+    out = bottleneck_kernel.bottleneck_chain(x, *ws, dtype=dtype)
+    ref = bottleneck_kernel.bottleneck_chain_plain(x, *ws, dtype=dtype)
+    assert out.shape == (b, h, w, c) and out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2.0 ** -6 * ref.float().abs().max().item()
+
+
+def test_bottleneck_chain_kernel_input_untouched(cuda):
+    """The kernel updates a copy of the residual stream, never x."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 4, 6, 256), generator=g).to(cuda, torch.bfloat16)
+    keep = x.clone()
+    ws = _chain_weights(g, 2, 256, 64, cuda)
+    bottleneck_kernel.bottleneck_chain(x, *ws, dtype=torch.bfloat16)
+    assert torch.equal(x, keep)
+
+
 @pytest.mark.parametrize("backbone,hw", [("tiny", (128, 192)),
-                                         ("vgg16", (96, 160))])
+                                         ("vgg16", (96, 160)),
+                                         ("resnet50", (96, 160))])
 def test_slice_on_card_matches_cpu(cuda, backbone, hw):
     """Batch of 2 through the whole f32 slice: card (kernels) against
     CPU (plain twins), same weights; detections match by class, IoU >=
@@ -117,6 +164,7 @@ def test_slice_on_card_matches_cpu(cuda, backbone, hw):
 
     cfg = replace_path(get_config("vgg16"), "model.backbone", backbone)
     cfg = replace_path(cfg, "model.compute_dtype", "float32")
+    cfg = replace_path(cfg, "model.multiscale_roi", backbone == "resnet50")
     cfg = replace_path(cfg, "anchors.scales", (2.0, 4.0, 8.0))
     cpu = build_model(cfg.model, cfg.anchors.num_anchors)
     init_weights(cpu, torch.Generator().manual_seed(0), input_scale=1 / 64,
@@ -150,3 +198,10 @@ def test_wrappers_reject_bad_inputs(cuda):
         roi_align_kernel.roi_align_contract(torch.zeros(1, 2, 3, 4, device=cuda),
                                             torch.zeros(1, 2, 3, 4, device=cuda),
                                             feat)
+    ws = _chain_weights(torch.Generator().manual_seed(0), 1, 96, 24, cuda)
+    with pytest.raises(ValueError):   # C and F not multiples of 64
+        bottleneck_kernel.bottleneck_chain(torch.zeros(1, 4, 4, 96, device=cuda),
+                                           *ws)
+    with pytest.raises(TypeError):
+        bottleneck_kernel.bottleneck_chain(torch.zeros(1, 4, 4, 96, device=cuda),
+                                           *ws, dtype=torch.float16)

@@ -1,6 +1,9 @@
 """The inference slice of the port against the JAX package, on the CPU
 (f32): the weight bridge, then the whole slice for the ``tiny`` backbone
-(tests/helpers.py:tiny_config) and VGG16 at full width on a 64x96 canvas.
+(tests/helpers.py:tiny_config), and at full width on a 64x96 canvas for
+VGG16, ResNet-50, and ResNet-50 with multiscale RoI pooling (the lateral
+projection before and after pooling; ``ms_fine_threshold`` lowered to 32
+so that both pyramid levels serve rois on this canvas).
 
 Both sides get the same weights, built with numpy and bridged.  Stage by
 stage, each stage is fed the JAX side's inputs, so a mismatch points at
@@ -41,6 +44,7 @@ from scda_tpu_torch.models import detector as tdet
 from scda_tpu_torch.models.backbones.vgg import VGG16_LAYOUT
 from scda_tpu_torch.models.faster_rcnn import build_model, pool_rois
 from scda_tpu_torch.models.rpn import propose
+from test_torch_resnet import resnet_trees
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,7 +66,10 @@ def jax_params(backbone, cfg, seed=0):
     stay O(1) and scores spread out."""
     rng = np.random.default_rng(seed)
     mc, a = cfg.model, cfg.anchors.num_anchors
-    if backbone == "vgg16":
+    if backbone.startswith("resnet"):
+        convs, head = resnet_trees(rng, int(backbone[len("resnet"):]))
+        f8_ch, feat_ch, hid = 512, 1024, 2048
+    elif backbone == "vgg16":
         convs, cin = {}, 3
         for item in VGG16_LAYOUT:
             if item != "M":
@@ -70,13 +77,15 @@ def jax_params(backbone, cfg, seed=0):
                 convs[f"conv{idx}"] = _conv(rng, 3, cin, ch)
                 cin = ch
         head = {"fc6": _dense(rng, 512 * 49, 4096), "fc7": _dense(rng, 4096, 4096)}
-        feat_ch, hid = 512, 4096
+        f8_ch, feat_ch, hid = 512, 512, 4096
     else:
         chans = (3, 16, 32, 48, 64)
         convs = {f"conv{i}": _conv(rng, 3, chans[i], chans[i + 1])
                  for i in range(4)}
         head = {"fc": _dense(rng, 64 * 49, 128)}
-        feat_ch, hid = 64, 128
+        f8_ch, feat_ch, hid = 48, 64, 128
+    extra = ({"c3_proj": _conv(rng, 1, f8_ch, feat_ch)}
+             if mc.multiscale_roi else {})
     return {
         "backbone": convs, "head": head,
         "rpn": {"conv": _conv(rng, 3, feat_ch, mc.rpn_channels),
@@ -84,34 +93,59 @@ def jax_params(backbone, cfg, seed=0):
                 "bbox_pred": _conv(rng, 1, mc.rpn_channels, 4 * a, gain=0.3)},
         "cls_score": _dense(rng, hid, mc.num_classes),
         "bbox_pred": _dense(rng, hid, 4 * mc.num_classes),
+        **extra,
     }
 
 
-def slice_config(backbone):
+SLICES = {  # name: (backbone, multiscale_roi, ms_proj_after_pool)
+    "tiny": ("tiny", False, False),
+    "tiny_ms": ("tiny", True, False),
+    "vgg16": ("vgg16", False, False),
+    "resnet50": ("resnet50", False, False),
+    "resnet50_ms": ("resnet50", True, False),
+    "resnet50_ms_after_pool": ("resnet50", True, True),
+}
+
+
+def slice_config(name):
+    backbone, ms, after = SLICES[name]
     if backbone == "tiny":
-        return tiny_config()
-    cfg = tiny_config(num_classes=9, backbone="vgg16")
+        cfg = replace_path(tiny_config(), "model.multiscale_roi", ms)
+        return replace_path(cfg, "model.ms_fine_threshold", 48.0)
+    cfg = tiny_config(num_classes=9, backbone=backbone)
     cfg = replace_path(cfg, "model.rpn_channels", 512)
+    cfg = replace_path(cfg, "model.multiscale_roi", ms)
+    cfg = replace_path(cfg, "model.ms_proj_after_pool", after)
+    cfg = replace_path(cfg, "model.ms_fine_threshold", 32.0)
     return replace_path(cfg, "data.image_size", (64, 96))
 
 
 class _FedJax:
     """Stands in for the flax module: returns given stage outputs."""
 
-    def __init__(self, feat, rpn, head):
+    def __init__(self, feat, rpn, head, f8=None, pooled=None):
         self.out = {JaxFasterRCNN.features: feat, JaxFasterRCNN.rpn_out: rpn,
-                    JaxFasterRCNN.roi_head: head}
+                    JaxFasterRCNN.roi_head: head,
+                    JaxFasterRCNN.features_pyramid: (f8, feat),
+                    JaxFasterRCNN.pool_multiscale: pooled}
 
     def apply(self, variables, *args, method=None, **kw):
         return self.out[method]
 
 
 class _FedTorch:
-    def __init__(self, feat, rpn, head):
+    def __init__(self, feat, rpn, head, f8=None, pooled=None):
         self.feat, self.rpn, self.head = feat, rpn, head
+        self.f8, self.pooled = f8, pooled
 
     def features(self, image):
         return self.feat
+
+    def features_pyramid(self, image):
+        return self.f8, self.feat
+
+    def pool_multiscale(self, f8, feat, rois):
+        return self.pooled
 
     def rpn_out(self, feat):
         return self.rpn
@@ -128,46 +162,64 @@ def _np(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-@pytest.fixture(scope="module", params=["tiny", "vgg16"])
+@pytest.fixture(scope="module", params=list(SLICES))
 def run(request):
     """Both packages on the same weights and images, stage by stage."""
-    backbone = request.param
-    cfg = slice_config(backbone)
+    name = request.param
+    backbone = SLICES[name][0]
+    cfg = slice_config(name)
+    mc = cfg.model
     params = jax_params(backbone, cfg)
     h, w = cfg.data.image_size
     rng = np.random.RandomState(1)
     image = rng.randn(2, h, w, 3).astype(np.float32)
     im_info = np.array([[h, w, 1.0], [h - 16, w - 32, 0.8]], np.float32)
 
-    jm = jax_build_model(cfg.model, num_anchors=cfg.anchors.num_anchors)
+    jm = jax_build_model(mc, num_anchors=cfg.anchors.num_anchors)
     var = {"params": params}
     x, info = jnp.asarray(image), jnp.asarray(im_info)
     # Each stage jitted: one XLA compile each beats op-by-op dispatch.
-    feat = jax.jit(lambda v, x: jm.apply(v, x, method=JaxFasterRCNN.features))(var, x)
+    if mc.multiscale_roi:
+        f8, feat = jax.jit(lambda v, x: jm.apply(
+            v, x, method=JaxFasterRCNN.features_pyramid))(var, x)
+    else:
+        f8 = None
+        feat = jax.jit(lambda v, x: jm.apply(
+            v, x, method=JaxFasterRCNN.features))(var, x)
     rpn = jax.jit(lambda v, f: jm.apply(v, f, method=JaxFasterRCNN.rpn_out))(var, feat)
     anchors = jdet.make_anchors(cfg, (feat.shape[1], feat.shape[2]))
     props = jax.jit(lambda c, b, a, i: jax_propose(c, b, a, i, cfg.test.proposal))(
         *rpn, anchors, info)
-    pooled = jax.jit(lambda f, r: jax_pool_rois(f, r, None, cfg.model))(
-        feat, props.boxes)
+    if mc.multiscale_roi:
+        pooled = jax.jit(lambda v, f8, f, r: jdet._pool_ms(
+            jm, v["params"], f8, f, r, mc))(var, f8, feat, props.boxes)
+    else:
+        pooled = jax.jit(lambda f, r: jax_pool_rois(f, r, None, mc))(
+            feat, props.boxes)
     head = jax.jit(lambda v, p: jm.apply(v, p, False, method=JaxFasterRCNN.roi_head))(
         var, pooled)
     fed = jax.jit(lambda x, i: jdet.forward_inference(
-        _FedJax(feat, rpn, head), params, x, i, cfg))(x, info)
+        _FedJax(feat, rpn, head, f8, pooled), params, x, i, cfg))(x, info)
     dets = jax.jit(lambda v, x, i: jdet.forward_inference(jm, v["params"], x, i, cfg))(
         var, x, info)
 
     sd = bridge.state_dict_from_jax(params, backbone)
-    tm = build_model(cfg.model, cfg.anchors.num_anchors)
+    tm = build_model(mc, cfg.anchors.num_anchors)
     tm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
-    return dict(backbone=backbone, cfg=cfg, params=params, sd=sd, image=image,
-                im_info=im_info, model=tm, feat=feat, rpn=rpn, anchors=anchors,
-                props=props, pooled=pooled, head=head, fed=fed, dets=dets)
+    return dict(backbone=backbone, cfg=cfg, params=params, sd=sd,
+                image=image, im_info=im_info, model=tm, f8=f8, feat=feat,
+                rpn=rpn, anchors=anchors, props=props, pooled=pooled,
+                head=head, fed=fed, dets=dets)
 
 
 def test_features_and_rpn_logits(run):
     with torch.no_grad():
-        feat = run["model"].features(_t(run["image"]))
+        if run["cfg"].model.multiscale_roi:
+            f8, feat = run["model"].features_pyramid(_t(run["image"]))
+            np.testing.assert_allclose(_np(f8), np.asarray(run["f8"]),
+                                       rtol=1e-4, atol=1e-4)
+        else:
+            feat = run["model"].features(_t(run["image"]))
         cls, bbox = run["model"].rpn_out(feat)
     np.testing.assert_allclose(_np(feat), np.asarray(run["feat"]),
                                rtol=1e-4, atol=1e-4)
@@ -175,6 +227,30 @@ def test_features_and_rpn_logits(run):
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(_np(bbox), np.asarray(run["rpn"][1]),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backbone", ["tiny", "vgg16"])
+def test_backbone_pyramid_matches_jax(backbone):
+    """``return_pyramid``: the stride-8 and stride-16 maps against the
+    flax backbone's, f32, rtol=atol=1e-4."""
+    from scda_tpu.models.backbones.tiny import TinyBackbone
+    from scda_tpu.models.backbones.vgg import VGG16Backbone
+
+    cfg = slice_config(backbone)
+    params = jax_params(backbone, cfg, seed=5)
+    jax_backbone = (TinyBackbone(dtype=jnp.float32) if backbone == "tiny"
+                    else VGG16Backbone(dtype=jnp.float32))
+    x = np.random.RandomState(2).randn(1, 32, 48, 3).astype(np.float32)
+    ref = jax_backbone.apply({"params": params["backbone"]}, jnp.asarray(x),
+                             return_pyramid=True)
+    model = build_model(cfg.model, cfg.anchors.num_anchors)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           bridge.state_dict_from_jax(params, backbone).items()})
+    with torch.no_grad():
+        out = model.RCNN_base(_t(x).permute(0, 3, 1, 2), return_pyramid=True)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(_np(o.permute(0, 2, 3, 1)), np.asarray(r),
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_propose_same_logits(run):
@@ -190,8 +266,19 @@ def test_propose_same_logits(run):
 
 
 def test_pooled_rois_same_inputs(run):
-    out = pool_rois(_t(run["feat"]), _t(run["props"].boxes), None,
-                    run["cfg"].model)
+    mc = run["cfg"].model
+    boxes = _t(run["props"].boxes)
+    if mc.multiscale_roi:
+        # Both pyramid levels must serve some rois, or the test is vacuous.
+        area = ((boxes[..., 2] - boxes[..., 0]).clamp(min=0)
+                * (boxes[..., 3] - boxes[..., 1]).clamp(min=0))
+        fine = (area.sqrt() < mc.ms_fine_threshold)[_t(run["props"].valid)]
+        assert 0 < int(fine.sum()) < fine.numel()
+        with torch.no_grad():
+            out = tdet._pool_ms(run["model"], _t(run["f8"]), _t(run["feat"]),
+                                boxes, mc)
+    else:
+        out = pool_rois(_t(run["feat"]), boxes, None, mc)
     np.testing.assert_allclose(_np(out), np.asarray(run["pooled"]),
                                rtol=1e-5, atol=1e-5)
 
@@ -213,8 +300,9 @@ def test_roi_head_same_pooled(run):
 
 
 def test_postprocess_same_logits(run):
+    f8 = None if run["f8"] is None else _t(run["f8"])
     fed = _FedTorch(_t(run["feat"]), tuple(map(_t, run["rpn"])),
-                    tuple(map(_t, run["head"])))
+                    tuple(map(_t, run["head"])), f8, _t(run["pooled"]))
     out = tdet.forward_inference(fed, _t(run["image"]), _t(run["im_info"]),
                                  run["cfg"])
     ref = run["fed"]
@@ -238,11 +326,16 @@ def test_end_to_end_match_rate(run):
 
 
 def test_bridge_matches_exporter_and_model(run):
+    """The bridge equals the JAX exporter key for key and value for
+    value; the exporter leaves out ``c3_proj``, which the reference
+    lineage does not have."""
     sd = run["sd"]
     assert set(sd) == set(run["model"].state_dict())
-    if run["backbone"] == "vgg16":
-        ref = export_reference_detector(run["params"], "vgg16")
-        assert set(sd) == set(ref)
+    if run["backbone"] != "tiny":
+        ref = export_reference_detector(run["params"], run["backbone"])
+        extra = ({"RCNN_c3_proj.weight", "RCNN_c3_proj.bias"}
+                 if run["cfg"].model.multiscale_roi else set())
+        assert set(sd) == set(ref) | extra
         for k in ref:
             np.testing.assert_array_equal(sd[k], ref[k], err_msg=k)
 
@@ -263,11 +356,32 @@ def test_reference_checkpoint_loads(tmp_path):
 
 
 def test_unported_modes_raise():
+    """RoI pool and crop, and flat (R, 4) rois with batch indices, are
+    not ported yet."""
     cfg = tiny_config()
-    for key, value in (("backbone", "resnet101"), ("multiscale_roi", True),
-                       ("pooling_mode", "pool"), ("pooling_mode", "crop")):
+    for mode in ("pool", "crop"):
         with pytest.raises(NotImplementedError):
-            build_model(replace_path(cfg.model, key, value))
+            build_model(replace_path(cfg.model, "pooling_mode", mode))
+    feat = torch.zeros(1, 4, 6, 64)
+    with pytest.raises(NotImplementedError):
+        pool_rois(feat, torch.zeros(3, 4), torch.zeros(3, dtype=torch.long),
+                  cfg.model)
+
+
+@pytest.mark.parametrize("ms_proj_after_pool", [False, True])
+def test_resnet101_multiscale_builds(ms_proj_after_pool):
+    """BASELINE config #5's model (cfgs/res101_ms.yml) builds with the
+    reference lineage's layout plus ``RCNN_c3_proj``."""
+    from scda_tpu.config import get_config
+
+    mc = replace_path(get_config("res101").model, "multiscale_roi", True)
+    mc = replace_path(mc, "ms_proj_after_pool", ms_proj_after_pool)
+    model = build_model(mc)
+    sd = model.state_dict()
+    assert sd["RCNN_c3_proj.weight"].shape == (1024, 512, 1, 1)
+    assert "RCNN_base.6.22.bn3.running_var" in sd
+    assert "RCNN_top.0.2.conv3.weight" in sd
+    assert not any(k.endswith("num_batches_tracked") for k in sd)
 
 
 def test_cli_evaluates_torch_checkpoint(tmp_path):
@@ -289,6 +403,44 @@ def test_cli_evaluates_torch_checkpoint(tmp_path):
         "test.proposal.post_nms_top_n=50",
     ])
     assert rc == 0 and os.path.exists(dets)
+
+
+def test_cli_evaluates_resnet_checkpoint(tmp_path):
+    """test_net --net res50 on the CPU: the res50 preset, a bridged
+    reference-layout checkpoint, a 2-image synthetic set."""
+    from scda_tpu.config import get_config
+    from scda_tpu_torch.cli import test_net
+
+    cfg = replace_path(get_config("res50"), "model.num_classes", 5)
+    sd = bridge.state_dict_from_jax(jax_params("resnet50", cfg, seed=4),
+                                    "resnet50")
+    pth = str(tmp_path / "res50.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+    dets = str(tmp_path / "dets.json")
+    rc = test_net.main([
+        "--net", "res50", "--device", "cpu", "--synth_images", "2",
+        "--synth_size", "64", "96", "--torch_checkpoint", pth,
+        "--dets_out", dets, "--set", "test.proposal.pre_nms_top_n=100",
+        "test.proposal.post_nms_top_n=16",
+    ])
+    assert rc == 0 and os.path.exists(dets)
+
+
+def test_match_rate_is_a_maximum_matching():
+    """Two equal boxes: a's 0.5 is within 1e-3 of both of b's scores,
+    a's 0.4994 only of b's 0.4994.  A greedy pass pairs 0.5 with 0.4994
+    and strands the rest; the maximum matching pairs all.  A degenerate
+    box (x2 < x1 - 1, no area) matches its equal."""
+    box = [0.0, 0.0, 10.0, 10.0]
+    boxes = np.array([[box, box, [30.0, 30.0, 27.0, 40.0]]], np.float32)
+    classes = np.ones((1, 3), np.int64)
+    valid = np.ones((1, 3), bool)
+    a = (boxes, np.array([[0.5, 0.4994, 0.3]], np.float32), classes, valid)
+    b = (boxes, np.array([[0.4994, 0.5006, 0.3]], np.float32), classes, valid)
+    assert detection_match_rate(a, a) == (1.0, 3, 3)
+    assert detection_match_rate(a, b) == (1.0, 3, 3)
+    shifted = (boxes + 5.0, a[1], classes, valid)
+    assert detection_match_rate(a, shifted)[0] == 0.0
 
 
 def test_evaluate_model_through_shared_voc_eval(tmp_path):
@@ -331,6 +483,14 @@ def test_port_imports_no_jax():
         "d = forward_inference(m, torch.randn(1, 128, 192, 3) * 30,\n"
         "                      torch.tensor([[128.0, 192.0, 1.0]]), cfg)\n"
         "assert d.boxes.shape == (1, 16, 4)\n"
+        "from scda_tpu.config import replace_path\n"
+        "mc = replace_path(cfg.model, 'backbone', 'resnet50')\n"
+        "mc = replace_path(mc, 'multiscale_roi', True)\n"
+        "cfg = replace_path(cfg, 'model', mc)\n"
+        "m = build_model(cfg.model, cfg.anchors.num_anchors)\n"
+        "d = forward_inference(m, torch.randn(1, 64, 96, 3) * 30,\n"
+        "                      torch.tensor([[64.0, 96.0, 1.0]]), cfg)\n"
+        "assert bool(torch.isfinite(d.boxes).all())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

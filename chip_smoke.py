@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths through its entry points, with
-seeded random weights, and checks its four CUDA kernels:
+Drives the port's serving and training paths through its entry points,
+with seeded random weights, and checks its five CUDA kernels:
 
   * VGG16 Faster R-CNN (BASELINE config #1): 512x1024 canvas, proposals
-    6000 -> 300, 9 classes;
+    6000 -> 300 when serving, 12000 -> 2000 when training, 9 classes;
   * ResNet-101 Faster R-CNN with multiscale RoI-Align (BASELINE config
     #5, ``cfgs/res101_ms.yml``): the same canvas, proposals and classes.
 
@@ -24,7 +24,16 @@ non-zero:
      (img/s, launch counts per image, detections), the f32 run, and the
      f32 card run against the same slice on the CPU (which takes the
      plain twins); for ResNet-101 also one bf16 forward with the lateral
-     projection after pooling.
+     projection after pooling;
+  5. train   — per path the source-only train step (bf16 compute, f32
+     params; VGG16 at bs 1 and 8, ResNet-101 multiscale at bs 1): img/s,
+     losses, peak memory, launches per step, and the total loss of a
+     fixed batch before and after; K1 at the training shape and the K2
+     backward against their twins on the inputs a step gives them; then
+     one f32 step's gradients with the kernels against the same step
+     with every wrapper swapped for its twin (also with the twins'
+     outputs perturbed by rounding-sized noise, which sets the bound),
+     and its losses against the same step on the CPU.
 
 The last lines are the ``nvidia-smi`` line, the kernels summary and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -32,6 +41,8 @@ The last lines are the ``nvidia-smi`` line, the kernels summary and
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -42,6 +53,16 @@ CANVAS = (512, 1024)
 N_FRAMES = 8
 VGG_REPEATS = 3
 RES_REPEATS = 3
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
+RES_TRAIN_WARMUP = 2
+RES_TRAIN_STEPS = 5
+TRAIN_SEED = 3
+# The gradient check's plain swap (see ``Port.grad_check``).
+FWD_GAP = 1e-5
+PERTURB = 1e-6
+PERTURB_SEEDS = (0, 1)
+PERTURB_FACTOR = 4.0
 
 
 def emit(obj) -> None:
@@ -93,39 +114,61 @@ def bf16_ulp(torch, v):
 
 def make_frames(cfg, n, seed):
     """Distinct structured 1024x2048 scenes through the shared host prep
-    (BGR, scale rule, mean subtraction, fixed canvas)."""
+    (BGR, scale rule, mean subtraction, fixed canvas; gt boxes scaled and
+    padded as the loader does).  Returns (images, infos, gt_boxes,
+    num_boxes), lists of per-frame arrays with a batch axis of 1."""
     import numpy as np
 
-    from scda_tpu.data.pipeline import prepare_image
+    from scda_tpu.data.pipeline import prepare_gt_boxes, prepare_image
     from scda_tpu.data.synthetic import SYNTH_CLASSES, _draw_scene
+    from scda_tpu.data.voc import ImageRecord
 
     rng = np.random.RandomState(seed)
-    images, infos = [], []
-    for _ in range(n):
-        rgb, _, _ = _draw_scene(rng, 1024, 2048, max_objects=8,
-                                classes=SYNTH_CLASSES)
+    images, infos, gts, nums = [], [], [], []
+    for i in range(n):
+        rgb, boxes, labels = _draw_scene(rng, 1024, 2048, max_objects=8,
+                                         classes=SYNTH_CLASSES)
         canvas, scale, (vh, vw) = prepare_image(
             np.ascontiguousarray(rgb[:, :, ::-1]), cfg.data)
+        record = ImageRecord(image_id=str(i), image_path="", width=2048,
+                             height=1024, boxes=boxes, labels=labels,
+                             difficult=np.zeros(len(boxes), bool))
+        gt, num = prepare_gt_boxes(record, scale, cfg.data)
         images.append(canvas[None])
         infos.append(np.asarray([[vh, vw, scale]], np.float32))
-    return images, infos
+        gts.append(gt[None])
+        nums.append(np.asarray([num], np.int32))
+    return images, infos, gts, nums
 
 
 class Recorder:
-    """Records the arguments of the calls a module makes to a kernel
-    wrapper, by rebinding the name the module calls it through."""
+    """Records the arguments and results of the calls a module makes to a
+    function, by rebinding the name the module calls it through; with
+    ``replace``, the calls go to ``replace`` instead.  The stand-in's
+    ``launches`` is the original's, so a wrapper that counts through its
+    own (rebound) name still counts on the original."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, replace=None):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
-        self.calls = []
+        self.fn = replace or self.orig
+        self.calls, self.results = [], []
+
+    @property
+    def launches(self):
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.orig.launches = value
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append((args, kwargs))
+        self.results.append(self.fn(*args, **kwargs))
+        return self.results[-1]
 
     def __enter__(self):
-        def record(*args, **kwargs):
-            self.calls.append((args, kwargs))
-            return self.orig(*args, **kwargs)
-
-        setattr(self.module, self.name, record)
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
@@ -136,7 +179,7 @@ class Port:
     """The port's modules, imported once the device check has passed."""
 
     def __init__(self, torch):
-        from scda_tpu.config import get_config, replace_path
+        from scda_tpu.config import config_from_yaml, get_config, replace_path
         from scda_tpu_torch.evals.detect import (
             bf16_inference_params, detection_match_rate,
         )
@@ -147,9 +190,17 @@ class Port:
         from scda_tpu_torch.ops.kernels import (
             bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel,
         )
+        from scda_tpu_torch.train.state import create_train_state
+        from scda_tpu_torch.train.steps import (
+            make_train_step, step_generators,
+        )
 
         self.torch = torch
         self.get_config, self.replace_path = get_config, replace_path
+        self.config_from_yaml = config_from_yaml
+        self.create_train_state = create_train_state
+        self.make_train_step = make_train_step
+        self.step_generators = step_generators
         self.bf16_inference_params = bf16_inference_params
         self.detection_match_rate = detection_match_rate
         self.detector, self.resnet, self.vgg = detector, resnet, vgg
@@ -159,6 +210,7 @@ class Port:
             bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel)
         self.wrappers = {"nms": nms_kernel.nms_sorted,
                          "roi_align": roi_align_kernel.roi_align_contract,
+                         "roi_align_bwd": roi_align_kernel.roi_align_contract_bwd,
                          "vgg_stem": stem_kernel.vgg_stem_fused,
                          "bottleneck_chain": bottleneck_kernel.bottleneck_chain}
 
@@ -339,13 +391,347 @@ class Port:
                     f"K4 {label} {dt}: {bad} outputs outside {tol}")
         return out
 
+    # ---- training --------------------------------------------------------
+
+    def train_cfgs(self, preset, bs, yaml=None):
+        """(f32, bf16) train configs of a preset (overlaid with ``yaml``)
+        at the canvas and batch size ``bs``."""
+        cfg = self.get_config(preset)
+        if yaml:
+            cfg = self.config_from_yaml(yaml, base=cfg)
+        cfg = self.replace_path(cfg, "data.image_size", CANVAS)
+        cfg = self.replace_path(cfg, "train.batch_size", bs)
+        cfg = self.replace_path(cfg, "train.seed", TRAIN_SEED)
+        return (self.replace_path(cfg, "model.compute_dtype", "float32"),
+                self.replace_path(cfg, "model.compute_dtype", "bfloat16"))
+
+    def train_model(self, cfg, device, state=None):
+        """f32 parameters on the card: seeded He-normal convs with the
+        first scaled to 0-255 pixels and the reference's N(0, 0.01) /
+        N(0, 0.001) class and box heads, or ``state``."""
+        model = self.build_model(cfg.model, cfg.anchors.num_anchors,
+                                 device="cpu")
+        if state is None:
+            self.init_weights(model, self.torch.Generator().manual_seed(0),
+                              input_scale=1.0 / 64)
+        else:
+            model.load_state_dict(state)
+        return model.to(device)
+
+    def train_batches(self, frames, bs, device):
+        """Batches of ``bs`` frames on ``device``, cycling over the frames."""
+        import numpy as np
+
+        n = len(frames[0])
+        out = []
+        for start in range(0, max(n // bs, 1) * bs, bs):
+            idx = [(start + i) % n for i in range(bs)]
+            out.append(tuple(
+                self.torch.from_numpy(np.concatenate([a[i] for i in idx]))
+                .to(device) for a in frames))
+        return out
+
+    def fixed_losses(self, model, cfg, batch):
+        """The train forward's losses on ``batch`` with the step-0 draws,
+        no update: the same samples and dropout masks every call."""
+        torch = self.torch
+        with torch.no_grad():
+            out = self.detector.forward_train(
+                model, *batch, cfg,
+                self.step_generators(cfg.train.seed, 0, batch[0].device))
+        return {k: float(v) for k, v in out.metrics.items()}
+
+    def train_run(self, cfg, model, batches, path, warmup, steps,
+                  want_per_step, record=False):
+        """The main train path: ``warmup`` steps (the first recording K1's
+        and the K2 backward's inputs with ``record``), then ``steps``
+        timed steps with every launch count set to 0 just before and
+        read just after.  Returns (launches, records)."""
+        torch = self.torch
+        bs = batches[0][0].shape[0]
+        state = self.create_train_state(cfg, model, steps_per_epoch=1000)
+        step = self.make_train_step(model, cfg)
+        before = self.fixed_losses(model, cfg, batches[0])
+        records = {}
+        for i in range(warmup):
+            batch = batches[i % len(batches)]
+            if i == 0 and record:
+                with Recorder(self.nms, "nms_sorted") as rec_nms, \
+                        Recorder(self.rk, "roi_align_contract_bwd") as rec_bwd:
+                    state, first = step(state, *batch)
+                records = {"nms": rec_nms.calls, "roi_align_bwd": rec_bwd.calls}
+            else:
+                state, m = step(state, *batch)
+                first = m if i == 0 else first
+        torch.cuda.synchronize()
+        for w in self.wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rates = []
+        for i in range(steps):
+            batch = batches[(warmup + i) % len(batches)]
+            t0 = time.perf_counter()
+            state, last = step(state, *batch)
+            torch.cuda.synchronize()
+            rates.append(bs / (time.perf_counter() - t0))
+        launches = {k: w.launches for k, w in self.wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        after = self.fixed_losses(model, cfg, batches[0])
+        losses = {"first_step": {k: float(v) for k, v in first.items()},
+                  "last_step": {k: float(v) for k, v in last.items()}}
+        emit({"phase": "train", "path": path, "dtype": "bfloat16",
+              "params": "float32", "tf32": False, "batch_size": bs,
+              "warmup_steps": warmup, "timed_steps": steps,
+              "img_per_s_median": median(rates), "img_per_s": rates,
+              "losses": losses,
+              "fixed_batch_total": {"before": before["loss"],
+                                    "after": after["loss"]},
+              "launches": launches,
+              "launches_per_step": {k: v / steps for k, v in launches.items()},
+              "peak_mem_bytes": peak})
+        import math
+
+        finite = all(math.isfinite(v) for d in losses.values()
+                     for v in d.values())
+        require(finite, f"{path}: non-finite losses {losses}")
+        require(after["loss"] < before["loss"],
+                f"{path}: the fixed batch's total loss did not fall: "
+                f"{before['loss']} -> {after['loss']}")
+        want = {k: v * steps for k, v in want_per_step.items()}
+        require(launches == want,
+                f"{path}: launches {launches}, expected {want}")
+        return launches, records
+
+    def check_roi_bwd(self, calls):
+        """The K2 backward on recorded calls (labelled by batch size and
+        the map's stride), against its twin, for f32 and bf16 features.  The cotangent is scaled to a largest
+        magnitude of 1 first (the map is linear in it), so that the
+        tolerances mean something: f32 rtol=atol=1e-5; bf16 within 2
+        bf16 ulps of the output's largest magnitude."""
+        torch = self.torch
+        err_max, results = 0.0, []
+        for (wy, wx, g, h, w, _), _ in calls:
+            label = f"bs{g.shape[0]}_stride{CANVAS[0] // h}"
+            scale = float(g.abs().max().item())
+            require(scale > 0, f"K2 backward {label}: zero cotangent")
+            gn = g / scale
+            for dt in (torch.float32, torch.bfloat16):
+                k_out = self.rk.roi_align_contract_bwd(wy, wx, gn, h, w, dt)
+                p_out = self.rk.roi_align_contract_bwd_plain(wy, wx, gn, dt)
+                err = (k_out.float() - p_out.float()).abs()
+                top = float(p_out.float().abs().max().item())
+                if dt == torch.float32:
+                    bad = int((err > 1e-5 + 1e-5 * p_out.abs()).sum().item())
+                    tol = "rtol=1e-5, atol=1e-5"
+                else:
+                    bound = 2 * float(bf16_ulp(torch, torch.tensor(top)))
+                    bad = int((err > bound).sum().item())
+                    tol = f"max abs err <= 2 bf16 ulps of max|plain| ({bound})"
+                err_max = max(err_max, float(err.max().item()))
+                results.append({"case": label, "dtype": str(dt),
+                                "g": list(g.shape), "feat_hw": [h, w],
+                                "cotangent_scale": scale,
+                                "max_abs_err": float(err.max().item()),
+                                "max_abs_plain": top,
+                                "outside_tolerance": bad, "tolerance": tol})
+                require(bad == 0, f"K2 backward {label} {dt}: {bad} outside "
+                                  f"{tol}")
+        return err_max, results
+
+    def twins(self, values=None):
+        """Every kernel wrapper swapped for its plain twin, at the names
+        the modules call them through.  With ``values`` (name -> f(i,
+        out)), the i-th call of that twin outputs f(i, out) in place of
+        its own ``out`` while its gradient flows through the twin's own
+        graph."""
+        torch = self.torch
+        values = values or {}
+
+        class AtValues(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, ref, values):
+                return values.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                return g, None
+
+        def swap(module, name, twin):
+            if name not in values:
+                return Recorder(module, name, twin)
+            calls = itertools.count()
+
+            def call(*args, **kwargs):
+                out = twin(*args, **kwargs)
+                return AtValues.apply(out, values[name](next(calls),
+                                                        out.detach()))
+            return Recorder(module, name, call)
+
+        return [swap(self.vgg, "vgg_stem_fused", self.sk.vgg_stem_plain),
+                swap(self.roi_ops, "roi_align_contract",
+                     self.rk.roi_align_contract_plain),
+                swap(self.resnet, "bottleneck_chain",
+                     self.bk.bottleneck_chain_plain),
+                Recorder(self.nms, "nms_sorted", self.nk.nms_sorted_plain)]
+
+    def grad_check(self, cfg32, state_dict, batch, path, nonzero):
+        """One f32 step's gradients with the kernels against the same step
+        with every wrapper swapped for its twin, and its losses against
+        the same forward on the CPU.
+
+        Every run uses the same batch, CPU generators seeded alike (the
+        same anchor and roi draws and dropout masks on every device), and
+        the kernel run's proposals: the step ranks 18432 anchor scores,
+        and a 1e-6 change of one score can swap two of them, change the
+        proposals and so every sampled roi.  K1 is held to its twin on
+        its own inputs instead.
+
+        Twin runs, all differentiating through the twins' graphs:
+          * at the kernels' values: each twin outputs the kernel's
+            values, so the backward kernels and the autograd wiring are
+            compared at one linearisation point.  Per trainable
+            parameter ||g_kernel - g_twin|| <= 1e-3 ||g_twin||, and
+            nonzero under each prefix of ``nonzero``;
+          * the plain swap, the twins' own values.  The kernels' f32
+            forward outputs differ from the twins' by rounding
+            (||k - t|| <= ``FWD_GAP`` ||t||, measured here), which flips
+            a few ReLU gates and max-pool winners among millions and
+            moves the gradients of the layers below them;
+          * ``len(PERTURB_SEEDS)`` perturbed swaps, the twins' values
+            times 1 + ``PERTURB`` * N(0, 1): what rounding-sized noise
+            alone does to each gradient.
+        The plain swap's gap per parameter is held to max(1e-3,
+        ``PERTURB_FACTOR`` x the largest perturbed gap).  Losses: rtol
+        1e-4."""
+        torch = self.torch
+        device = batch[0].device
+        model = self.train_model(cfg32, device, state_dict)
+        state = self.create_train_state(cfg32, model)
+        names, params = state.trainable()
+        differentiable = ("vgg_stem_fused", "roi_align_contract",
+                          "bottleneck_chain")
+
+        def gens():
+            return self.detector.StepGenerators(
+                *(torch.Generator().manual_seed(TRAIN_SEED + i)
+                  for i in range(3)))
+
+        recs = [Recorder(self.detector, "propose"),
+                Recorder(self.vgg, "vgg_stem_fused"),
+                Recorder(self.roi_ops, "roi_align_contract"),
+                Recorder(self.resnet, "bottleneck_chain")]
+        with contextlib.ExitStack() as stack:
+            for r in recs:
+                stack.enter_context(r)
+            out_k = self.detector.forward_train(model, *batch, cfg32, gens())
+        grads_k = torch.autograd.grad(out_k.loss, params)
+        props = recs[0].results[0]
+        kernel_values = {r.name: [v.detach() for v in r.results]
+                         for r in recs[1:]}
+        counts = {k: w.launches for k, w in self.wrappers.items()}
+
+        def twin_grads(values):
+            swaps = self.twins(values) + [
+                Recorder(self.detector, "propose", lambda *a, **k: props)]
+            with contextlib.ExitStack() as stack:
+                for sw in swaps:
+                    stack.enter_context(sw)
+                out = self.detector.forward_train(model, *batch, cfg32,
+                                                  gens())
+                grads = torch.autograd.grad(out.loss, params)
+            outs = {sw.name: [v.detach() for v in sw.results]
+                    for sw in swaps if sw.name in differentiable}
+            return grads, outs
+
+        def rel_gap(ga, gb):
+            rel = {}
+            for n, a, b in zip(names, ga, gb):
+                ref = float(b.norm().item())
+                rel[n] = float((a - b).norm().item()) / ref if ref else (
+                    0.0 if float(a.norm().item()) == 0 else float("inf"))
+            return rel
+
+        def perturbed(seed):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return lambda i, t: t * (1 + PERTURB * torch.randn(
+                t.shape, generator=gen, device=t.device, dtype=t.dtype))
+
+        grads_at, _ = twin_grads(
+            {n: (lambda i, t, vs=kernel_values[n]: vs[i])
+             for n in differentiable})
+        grads_plain, twin_outs = twin_grads(None)
+        rel = rel_gap(grads_k, grads_at)
+        rel_plain = rel_gap(grads_k, grads_plain)
+        rel_pert = {n: 0.0 for n in names}
+        for seed in PERTURB_SEEDS:
+            noise = perturbed(seed)
+            grads_pert, _ = twin_grads({n: noise for n in differentiable})
+            for n, v in rel_gap(grads_pert, grads_plain).items():
+                rel_pert[n] = max(rel_pert[n], v)
+        require(counts == {k: w.launches for k, w in self.wrappers.items()},
+                f"{path}: a kernel launched in a twin run")
+        fwd_gap = {n: max(float((k - t).norm().item() / t.norm().item())
+                          for k, t in zip(kernel_values[n], twin_outs[n]))
+                   for n in differentiable if kernel_values[n]}
+        bound = {n: max(1e-3, PERTURB_FACTOR * rel_pert[n]) for n in names}
+        over = {n: rel_plain[n] for n in names if rel_plain[n] > bound[n]}
+        worst = max(rel, key=rel.get)
+        worst_plain = max(rel_plain, key=rel_plain.get)
+        top_plain = sorted(names, key=rel_plain.get, reverse=True)[:5]
+        zero = [n for n, g in zip(names, grads_k)
+                if n.startswith(nonzero) and float(g.abs().max().item()) == 0]
+        checked = [n for n in names if n.startswith(nonzero)]
+
+        cpu_model = self.train_model(cfg32, "cpu", state_dict)
+        cpu_props = type(props)(*(t.cpu() for t in props))
+        with Recorder(self.detector, "propose", lambda *a, **k: cpu_props):
+            with torch.no_grad():
+                out_c = self.detector.forward_train(
+                    cpu_model, *(t.cpu() for t in batch), cfg32, gens())
+        losses = {k: (float(out_k.metrics[k].detach()),
+                      float(out_c.metrics[k]))
+                  for k in ("loss", "rpn_cls", "rpn_box", "rcnn_cls",
+                            "rcnn_box")}
+        loss_rel = {k: abs(a - b) / max(abs(b), 1e-12)
+                    for k, (a, b) in losses.items()}
+        emit({"phase": "train_grad_check", "path": path, "dtype": "float32",
+              "tf32": False, "trainable": len(names),
+              "max_rel_grad_err": rel[worst], "worst_param": worst,
+              "max_rel_grad_err_plain_swap": rel_plain[worst_plain],
+              "worst_param_plain_swap": worst_plain,
+              "forward_gap": fwd_gap, "perturb": PERTURB,
+              "perturb_seeds": list(PERTURB_SEEDS),
+              "max_rel_grad_err_perturbed": max(rel_pert.values()),
+              "plain_vs_perturbed": {n: [rel_plain[n], rel_pert[n]]
+                                     for n in top_plain},
+              "over_bound": over,
+              "nonzero_checked": len(checked), "zero_grads": zero,
+              "grad_norms": {n: float(g.norm().item())
+                             for n, g in zip(names, grads_k)
+                             if n in checked[:4]},
+              "losses_card_vs_cpu": losses, "loss_rel_err": loss_rel})
+        require(rel[worst] <= 1e-3,
+                f"{path}: gradient of {worst} off its twin's by "
+                f"{rel[worst]} of its norm")
+        require(max(fwd_gap.values()) <= FWD_GAP,
+                f"{path}: f32 kernel outputs off the twins' by {fwd_gap} "
+                f"of their norm (bound {FWD_GAP})")
+        require(not over,
+                f"{path}: plain swap: gradients off the twins' by more than "
+                f"max(1e-3, {PERTURB_FACTOR} x the perturbed gap): {over}")
+        require(checked and not zero,
+                f"{path}: zero gradients under {nonzero}: {zero}")
+        require(max(loss_rel.values()) <= 1e-4,
+                f"{path}: f32 losses card vs CPU {losses}")
+        return rel[worst]
+
 
 def vgg16_path(port, device, frames):
     """VGG16 serving: kernels K1-K3 on the path's inputs, then the slice."""
     torch = port.torch
     cfg32, cfg16 = port.serving_cfgs("vgg16")
     model32, model16, state = port.models(cfg32, cfg16, device)
-    images_np, infos_np = frames
+    images_np, infos_np = frames[:2]
     images = [torch.from_numpy(x).to(device) for x in images_np]
     infos = [torch.from_numpy(x).to(device) for x in infos_np]
 
@@ -426,7 +812,8 @@ def vgg16_path(port, device, frames):
     launches = port.main_path(model16, cfg16, images, infos, VGG_REPEATS,
                               "vgg16")
     n = VGG_REPEATS * len(images)
-    want = {"nms": 2 * n, "roi_align": n, "vgg_stem": n, "bottleneck_chain": 0}
+    want = {"nms": 2 * n, "roi_align": n, "roi_align_bwd": 0, "vgg_stem": n,
+            "bottleneck_chain": 0}
     require(launches == want,
             f"VGG16 path launches {launches}, expected {want}")
 
@@ -446,7 +833,7 @@ def res101_ms_path(port, device, frames):
     torch = port.torch
     cfg32, cfg16 = port.serving_cfgs("res101", multiscale_roi=True)
     model32, model16, state = port.models(cfg32, cfg16, device)
-    images_np, infos_np = frames
+    images_np, infos_np = frames[:2]
     images = [torch.from_numpy(x).to(device) for x in images_np]
     infos = [torch.from_numpy(x).to(device) for x in infos_np]
 
@@ -518,8 +905,8 @@ def res101_ms_path(port, device, frames):
     launches = port.main_path(model16, cfg16, images, infos, RES_REPEATS,
                               "res101_ms")
     n = RES_REPEATS * len(images)
-    want = {"nms": 2 * n, "roi_align": 2 * n, "vgg_stem": 0,
-            "bottleneck_chain": 3 * n}
+    want = {"nms": 2 * n, "roi_align": 2 * n, "roi_align_bwd": 0,
+            "vgg_stem": 0, "bottleneck_chain": 3 * n}
     require(launches == want,
             f"res101-ms path launches {launches}, expected {want}")
 
@@ -548,6 +935,90 @@ def res101_ms_path(port, device, frames):
     require([1, 64, 128, 512] in shapes,
             f"proj-after-pool: K2 did not run on the raw level: {shapes}")
     return summary, launches
+
+
+def train_kernel_checks(port, records, path):
+    """K1 at the training shape and the K2 backward, each against its
+    twin on the inputs one recorded train step gave it, with times."""
+    torch = port.torch
+    summary = {}
+    nms_err, nms_results = port.check_nms(records["nms"], ("train_proposals",))
+    (sb, sv), kw = records["nms"][0][0][:2], records["nms"][0][1]
+    summary["nms"] = {
+        "train_shape": list(sv.shape), "train_max_output": kw["max_output"],
+        "train_ms": time_ms(torch, lambda: port.nk.nms_sorted(sb, sv, **kw), 20),
+        "train_plain_ms": time_ms(torch, lambda: port.nk.nms_sorted_plain(
+            sb, sv, **kw), 2)}
+    emit({"phase": "kernel", "path": path, "kernel": "nms",
+          "cases": nms_results, "max_abs_err": float(nms_err),
+          **summary["nms"]})
+
+    bwd_err, bwd_results = port.check_roi_bwd(records["roi_align_bwd"])
+    times = []
+    for (wy, wx, g, h, w, dt), _ in records["roi_align_bwd"]:
+        times.append({
+            "g": list(g.shape), "feat_hw": [h, w], "dtype": str(dt),
+            "ms": time_ms(torch, lambda: port.rk.roi_align_contract_bwd(
+                wy, wx, g, h, w, dt), 20),
+            "plain_ms": time_ms(torch, lambda: port.rk.
+                                roi_align_contract_bwd_plain(wy, wx, g, dt),
+                                5)})
+    summary["roi_align_bwd"] = {"max_abs_err": bwd_err,
+                                "ms": sum(t["ms"] for t in times),
+                                "plain_ms": sum(t["plain_ms"] for t in times)}
+    emit({"phase": "kernel", "path": path, "kernel": "roi_align_bwd",
+          "cases": bwd_results, "times": times, **summary["roi_align_bwd"]})
+    return summary
+
+
+def vgg16_train_path(port, device, frames):
+    """VGG16 training: bs 1 and 8 (K1, K2 forward and backward, K3), the
+    kernel checks on the bs=8 step's inputs, the f32 gradient check."""
+    want = {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "vgg_stem": 1,
+            "bottleneck_chain": 0}
+    launches, records = {}, {}
+    for bs in (1, 8):
+        _, cfg16 = port.train_cfgs("vgg16", bs)
+        model = port.train_model(cfg16, device)
+        if bs == 1:
+            state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+        launches[f"vgg16_train_bs{bs}"], rec = port.train_run(
+            cfg16, model, port.train_batches(frames, bs, device),
+            f"vgg16_train_bs{bs}", TRAIN_WARMUP, TRAIN_STEPS, want,
+            record=bs == 8)
+        records = rec or records
+        del model
+    summary = train_kernel_checks(port, records, "vgg16_train")
+    cfg32, _ = port.train_cfgs("vgg16", 1)
+    port.grad_check(cfg32, state_dict, port.train_batches(frames, 1, device)[0],
+                    "vgg16_train", ("RCNN_base.10.",))
+    return summary, launches
+
+
+def res101_ms_train_path(port, device, frames):
+    """ResNet-101 multiscale training at bs 1 (K4 forward on the three
+    stages, K1, K2 forward and backward on both levels), the kernel
+    checks, the f32 gradient check (layer2/layer3 through K4)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    yaml = os.path.join(here, "cfgs", "res101_ms.yml")
+    cfg32, cfg16 = port.train_cfgs("res101", 1, yaml)
+    require(cfg16.model.multiscale_roi and not cfg16.train.double_bias
+            and cfg16.train.weight_decay == 1e-4,
+            "cfgs/res101_ms.yml did not give the res101-ms train config")
+    want = {"nms": 1, "roi_align": 2, "roi_align_bwd": 2, "vgg_stem": 0,
+            "bottleneck_chain": 3}
+    model = port.train_model(cfg16, device)
+    state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+    launches, records = port.train_run(
+        cfg16, model, port.train_batches(frames, 1, device),
+        "res101_ms_train_bs1", RES_TRAIN_WARMUP, RES_TRAIN_STEPS, want,
+        record=True)
+    del model
+    summary = train_kernel_checks(port, records, "res101_ms_train")
+    port.grad_check(cfg32, state_dict, port.train_batches(frames, 1, device)[0],
+                    "res101_ms_train",
+                    ("RCNN_base.5.", "RCNN_base.6."))
+    return summary, {"res101_ms_train_bs1": launches}
 
 
 def main() -> int:
@@ -589,24 +1060,36 @@ def main() -> int:
     port = Port(torch)
     frames = make_frames(port.serving_cfgs("vgg16")[0], N_FRAMES, seed=1)
 
-    # ---- phases 3 and 4, per path ------------------------------------
-    t0 = time.perf_counter()
-    vgg_summary, vgg_launches = vgg16_path(port, device, frames)
-    emit({"phase": "path_done", "path": "vgg16",
-          "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    res_summary, res_launches = res101_ms_path(port, device, frames)
-    emit({"phase": "path_done", "path": "res101_ms",
-          "seconds": time.perf_counter() - t0})
+    # ---- phases 3 to 5, per path -------------------------------------
+    launches, summaries, timings = {}, {}, {}
+    for name, fn in (("vgg16", vgg16_path), ("res101_ms", res101_ms_path),
+                     ("vgg16_train", vgg16_train_path),
+                     ("res101_ms_train", res101_ms_train_path)):
+        t0 = time.perf_counter()
+        serving = name in ("vgg16", "res101_ms")
+        with torch.no_grad() if serving else contextlib.nullcontext():
+            summary, by_path = fn(port, device, frames)
+        if serving:
+            by_path = {name: by_path}
+        launches.update(by_path)
+        for kernel, values in summary.items():   # the first path's times
+            into = summaries.setdefault(kernel, {})
+            for key, value in values.items():
+                into[key] = (max(into.get(key, 0.0), value)
+                             if key == "max_abs_err" else into.get(key, value))
+        timings[name] = time.perf_counter() - t0
+        emit({"phase": "path_done", "path": name, "seconds": timings[name]})
+        torch.cuda.empty_cache()
     require("jax" not in sys.modules and "flax" not in sys.modules,
             "the port imported JAX")
 
-    summary = {**vgg_summary, **res_summary}
     sources = {
         "nms": ("scda_tpu_torch/csrc/nms.cu",
                 "scda_tpu/ops/pallas/nms_kernel.py:153"),
         "roi_align": ("scda_tpu_torch/csrc/roi_align.cu",
                       "scda_tpu/ops/pallas/roi_align_kernel.py:103"),
+        "roi_align_bwd": ("scda_tpu_torch/csrc/roi_align.cu",
+                          "scda_tpu/ops/pallas/roi_align_kernel.py:137"),
         "vgg_stem": ("scda_tpu_torch/csrc/vgg_stem.cu",
                      "scda_tpu/ops/pallas/stem_kernel.py:152"),
         "bottleneck_chain": ("scda_tpu_torch/csrc/bottleneck_chain.cu",
@@ -614,12 +1097,11 @@ def main() -> int:
     }
     kernels = []
     for name, (src, rep) in sources.items():
-        by_path = {"vgg16": vgg_launches[name],
-                   "res101_ms": res_launches[name]}
+        by_path = {path: counts[name] for path, counts in launches.items()}
         require(sum(by_path.values()) > 0, f"kernel {name} never launched")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
-                        "launches_by_path": by_path, **summary[name]})
+                        "launches_by_path": by_path, **summaries[name]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

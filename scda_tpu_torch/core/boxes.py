@@ -131,3 +131,37 @@ def bbox_overlaps(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
 
     union = box_area(boxes)[:, None] + box_area(query)[None, :] - inter
     return inter / torch.clamp(union, min=1e-9)
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Encode gt boxes against example boxes as (dx, dy, dw, dh); shapes
+    broadcast, (..., 4) -> (..., 4)."""
+    ew, eh, ecx, ecy = box_wh_ctr(ex_rois)
+    gw, gh, gcx, gcy = box_wh_ctr(gt_rois)
+    ew = torch.clamp(ew, min=1e-6)
+    eh = torch.clamp(eh, min=1e-6)
+    dx = (gcx - ecx) / ew
+    dy = (gcy - ecy) / eh
+    dw = torch.log(torch.clamp(gw, min=1e-6) / ew)
+    dh = torch.log(torch.clamp(gh, min=1e-6) / eh)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
+def bbox_overlaps_batch(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Batched pairwise IoU, (B, N, 4) x (B, M, 4) -> (B, N, M)."""
+    return torch.vmap(bbox_overlaps)(boxes, query)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                   inside_weights: torch.Tensor, outside_weights: torch.Tensor,
+                   sigma: float = 1.0) -> torch.Tensor:
+    """Weighted smooth-L1 of both box losses: Huber with its transition at
+    1/sigma^2; inside weights pick the targets that count, outside
+    weights normalise.  Returns the scalar sum."""
+    sigma2 = sigma * sigma
+    diff = inside_weights * (pred - target)
+    abs_diff = torch.abs(diff)
+    flag = (abs_diff < (1.0 / sigma2)).to(pred.dtype)
+    per_elt = (flag * 0.5 * sigma2 * diff * diff
+               + (1.0 - flag) * (abs_diff - 0.5 / sigma2))
+    return torch.sum(outside_weights * per_elt)

@@ -15,8 +15,13 @@ tail runs as one call of kernel K4
 (:func:`scda_tpu_torch.ops.kernels.bottleneck_kernel.bottleneck_chain`)
 over the folded weights.  The layer4 head stays per block, as in JAX;
 ``model.head_matmul`` only changes how XLA lowers it, and the port
-ignores it.  The frozen-parameter paths for training wait for the
-training slice.
+ignores it.
+
+Training: conv1 and the first ``resnet_fixed_blocks`` stages are frozen
+(:func:`resnet_frozen_param_paths`); every ``FrozenBatchNorm2d`` holds
+buffers, never parameters, so none of them trains.  The fold is
+differentiable in the conv weights and K4's ``autograd.Function`` carries
+the gradient through the identity tails.
 """
 
 from __future__ import annotations
@@ -34,6 +39,16 @@ RESNET_DEPTHS = {
     101: (3, 4, 23, 3),
     152: (3, 8, 36, 3),
 }
+
+
+def resnet_frozen_param_paths(fixed_blocks: int = 1):
+    """Module prefixes of the frozen parameters: conv1/bn1 always, then
+    layer1 .. layer``fixed_blocks`` (at most 3), as JAX
+    ``resnet.py:329``."""
+    paths = ["RCNN_base.0", "RCNN_base.1"]
+    for i in range(1, min(max(fixed_blocks, 0), 3) + 1):
+        paths.append(f"RCNN_base.{i + 3}")
+    return tuple(paths)
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -159,8 +174,10 @@ class ResNetC4Head(nn.Sequential):
             *_stage_blocks(1024, 512, blocks[3], 2, dtype)))
         self.dtype = dtype
 
-    def forward(self, pooled: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """pooled (R, P, P, 1024) NHWC -> (R, 2048)."""
+    def forward(self, pooled: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """pooled (R, P, P, 1024) NHWC -> (R, 2048).  No dropout: ``train``
+        and ``generator`` change nothing."""
         x = pooled.permute(0, 3, 1, 2).to(self.dtype)
         x = self[0](x.contiguous(memory_format=torch.channels_last))
         return x.mean(dim=(2, 3))

@@ -46,7 +46,9 @@ class TinyHead(nn.Sequential):
         self.dtype = dtype
         self.out_dim = features
 
-    def forward(self, pooled: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, pooled: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """No dropout: ``train`` and ``generator`` change nothing."""
         dt = self.dtype
         x = pooled.reshape(pooled.shape[0], -1).to(dt)
         fc = self[0]

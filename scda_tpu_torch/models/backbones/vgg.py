@@ -9,6 +9,13 @@ They run NCHW in ``torch.channels_last``.  Weights may be float32 or
 bfloat16; each forward casts them to the compute dtype.  The stem
 (conv1_1, conv1_2, pool1) goes through kernel K3; conv3 .. conv5_3 are
 ``F.conv2d`` (cuDNN on the card), as XLA ran them outside Pallas.
+
+Training: conv1/conv2 are frozen (:func:`vgg_frozen_param_paths`, the
+reference's "fix the layers before conv3"); K3 has no backward, and on
+the card its wrapper refuses inputs that require grad.  Pools 2-4
+are :class:`MaxPool2x2`, whose backward splits the cotangent evenly among
+tied maxima as the JAX ``max_pool_2x2`` does.  The head's dropout draws
+from the train step's own ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,50 @@ VGG16_LAYOUT = (
     (17, 512), (19, 512), (21, 512), "M",
     (24, 512), (26, 512), (28, 512),
 )
+
+# Torch indices of conv1_1 .. conv2_2, frozen in the reference (JAX
+# ``vgg.py:_FROZEN_TORCH_IDX``).
+_FROZEN_TORCH_IDX = (0, 2, 5, 7)
+
+
+def vgg_frozen_param_paths():
+    """Module prefixes of the parameters that stay frozen."""
+    return tuple(f"RCNN_base.{i}" for i in _FROZEN_TORCH_IDX)
+
+
+class MaxPool2x2(torch.autograd.Function):
+    """2x2/stride-2 max pool on NCHW x (even H and W).  The backward is
+    JAX ``max_pool_2x2``'s: the cotangent splits evenly among the tied
+    maxima of a window.  ``F.max_pool2d`` routes it to one of them, and
+    in bf16 ties are common."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = F.max_pool2d(x, 2, 2)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        up = lambda t: t.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        is_max = (x == up(y)).to(g.dtype)
+        ties = F.avg_pool2d(is_max, 2, 2) * 4.0
+        return is_max * up(g / ties)
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    return MaxPool2x2.apply(x)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout`` semantics: keep with probability 1 - rate,
+    scale the kept by 1 / (1 - rate); the uniforms come from
+    ``generator``, drawn on its device."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(u.to(x.device) < keep, x / keep, torch.zeros_like(x))
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -68,13 +119,13 @@ class VGG16Backbone(nn.Sequential):
             else:
                 if pools == 3:
                     f8 = x
-                x = F.max_pool2d(x, 2, 2)
+                x = max_pool_2x2(x)
                 pools += 1
         return (f8, x) if return_pyramid else x
 
 
 class VGG16Head(nn.Sequential):
-    """fc6 / fc7 per-RoI head, dropout active only when ``train``."""
+    """fc6 / fc7 per-RoI head; dropout (rate 0.5) only when ``train``."""
 
     def __init__(self, in_features: int = 512 * 7 * 7,
                  dtype: torch.dtype = torch.bfloat16):
@@ -86,12 +137,18 @@ class VGG16Head(nn.Sequential):
 
     out_dim = 4096
 
-    def forward(self, pooled: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, pooled: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """pooled (R, P, P, C) NHWC, flattened in torch CHW order so fc6
-        keeps the reference's meaning."""
+        keeps the reference's meaning.  With ``train``, dropout draws from
+        ``generator``, which must then be given."""
+        if train and generator is None:
+            raise ValueError("VGG16Head: train=True needs the step's "
+                             "dropout generator")
         dt = self.dtype
         x = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1).to(dt)
         for fc in (self[0], self[3]):
             x = F.relu(F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
-            x = F.dropout(x, 0.5, training=train)
+            if train:
+                x = dropout(x, 0.5, generator)
         return x

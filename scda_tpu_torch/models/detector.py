@@ -1,16 +1,18 @@
-"""Inference pipeline (port of ``scda_tpu/models/detector.py``:
-``make_anchors``, ``Detections``, ``forward_inference`` and the
-multiscale pooling dispatch ``_pool_ms``).
+"""Detection pipeline (port of ``scda_tpu/models/detector.py``): the
+training forward with its four losses, and inference with its
+postprocess, plus ``make_anchors`` and the multiscale pooling dispatch
+``_pool_ms``.
 
 Every size is fixed by the config and invalid slots are masked, as in
 the JAX package, so the whole forward stays on the device with no host
-synchronisation.  Training (``forward_train`` and the losses) comes with
-a later slice of the port (ROADMAP.md).
+synchronisation.  The JAX losses pick labels with one-hot contractions,
+an XLA lowering choice; here they are gathers, which give the same
+values and gradients.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -20,6 +22,9 @@ from scda_tpu_torch.models.faster_rcnn import (
     FasterRCNN, pool_rois, pool_rois_multiscale,
 )
 from scda_tpu_torch.models.rpn import Proposals, propose
+from scda_tpu_torch.models.targets import (
+    AnchorTargets, RoiSamples, anchor_targets, proposal_targets,
+)
 from scda_tpu_torch.ops.nms import batched_nms
 
 
@@ -41,6 +46,114 @@ def make_anchors(cfg: Config, feat_hw: Tuple[int, int],
     anchors = box_ops.shift_anchors(base, feat_hw[0], feat_hw[1],
                                     cfg.model.feat_stride)
     return torch.from_numpy(anchors).to(device)
+
+
+class StepGenerators(NamedTuple):
+    """The train step's randomness, split three ways as JAX splits its
+    key: anchor sampling, roi sampling, dropout."""
+
+    anchor: torch.Generator
+    roi: torch.Generator
+    dropout: torch.Generator
+
+
+class TrainForward(NamedTuple):
+    loss: torch.Tensor
+    metrics: Dict[str, torch.Tensor]
+    proposals: Proposals
+    base_feat: torch.Tensor
+
+
+def _rpn_losses(cls_logits: torch.Tensor, bbox_pred: torch.Tensor,
+                tgts: AnchorTargets):
+    """RPN losses: cross-entropy over the sampled anchors, smooth-L1
+    (sigma 3) with the targets' outside weights, over the batch."""
+    b = cls_logits.shape[0]
+    logp = torch.log_softmax(cls_logits.reshape(b, -1, 2), dim=-1)
+    labels = tgts.labels
+    picked = torch.gather(logp, 2, torch.clamp(labels, min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    cls_loss = -torch.sum(picked * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    box_loss = box_ops.smooth_l1_loss(
+        bbox_pred.reshape(b, -1, 4), tgts.bbox_targets, tgts.bbox_inside_w,
+        tgts.bbox_outside_w, sigma=3.0) / b
+    return cls_loss, box_loss
+
+
+def _rcnn_losses(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
+                 samples: RoiSamples, num_classes: int,
+                 class_agnostic: bool):
+    """RoI head losses: cross-entropy over every sampled roi, smooth-L1
+    (sigma 1) on the gt class's deltas, mean over rois."""
+    bs, s = samples.labels.shape
+    logp = torch.log_softmax(cls_logits.reshape(bs, s, -1), dim=-1)
+    labels = samples.labels[..., None]
+    cls_loss = -torch.mean(torch.gather(logp, 2, labels)[..., 0])
+    if class_agnostic:
+        deltas = bbox_deltas.reshape(bs, s, 4)
+    else:
+        deltas = bbox_deltas.reshape(bs, s, num_classes, 4)
+        deltas = torch.gather(deltas, 2, labels[..., None].expand(
+            bs, s, 1, 4))[:, :, 0]
+    outside_w = (samples.bbox_inside_w > 0).float()
+    box_loss = box_ops.smooth_l1_loss(
+        deltas, samples.bbox_targets, samples.bbox_inside_w, outside_w,
+        sigma=1.0) / (bs * s)
+    return cls_loss, box_loss
+
+
+def forward_train(
+    model: FasterRCNN,
+    image: torch.Tensor,      # (B, H, W, 3)
+    im_info: torch.Tensor,    # (B, 3)
+    gt_boxes: torch.Tensor,   # (B, G, 5)
+    num_boxes: torch.Tensor,  # (B,)
+    cfg: Config,
+    rngs: StepGenerators,
+    *,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+) -> TrainForward:
+    """The supervised training forward: backbone, RPN and its targets,
+    proposals (``cfg.train.proposal``, no gradient), roi sampling,
+    pooling (both pyramid levels with ``multiscale_roi``), the head with
+    dropout, and the four losses.  ``draws`` may hold the ``"anchor"``
+    and ``"roi"`` uniforms of the target functions (tests inject JAX's)."""
+    mc = cfg.model
+    draws = draws or {}
+    if mc.multiscale_roi:
+        feat_fine, feat = model.features_pyramid(image)
+    else:
+        feat_fine, feat = None, model.features(image)
+    rpn_cls, rpn_bbox = model.rpn_out(feat)
+    anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]), feat.device)
+    props = propose(rpn_cls, rpn_bbox, anchors, im_info, cfg.train.proposal)
+
+    a_tgts = anchor_targets(anchors, gt_boxes, num_boxes, im_info,
+                            cfg.train.rpn_target, rngs.anchor,
+                            draws=draws.get("anchor"))
+    rpn_cls_loss, rpn_box_loss = _rpn_losses(rpn_cls, rpn_bbox, a_tgts)
+
+    samples = proposal_targets(props.boxes, props.valid, gt_boxes, num_boxes,
+                               cfg.train.roi_target, rngs.roi,
+                               draws=draws.get("roi"))
+    bs, s = samples.labels.shape
+    if mc.multiscale_roi:
+        pooled = _pool_ms(model, feat_fine, feat, samples.rois, mc)
+    else:
+        pooled = pool_rois(feat, samples.rois, None, mc)
+    cls_logits, bbox_deltas = model.roi_head(pooled, train=True,
+                                             generator=rngs.dropout)
+    rcnn_cls_loss, rcnn_box_loss = _rcnn_losses(
+        cls_logits, bbox_deltas, samples, mc.num_classes, mc.class_agnostic)
+
+    total = rpn_cls_loss + rpn_box_loss + rcnn_cls_loss + rcnn_box_loss
+    fg_cnt = samples.fg_mask.sum()
+    metrics = {
+        "loss": total, "rpn_cls": rpn_cls_loss, "rpn_box": rpn_box_loss,
+        "rcnn_cls": rcnn_cls_loss, "rcnn_box": rcnn_box_loss,
+        "fg_cnt": fg_cnt, "bg_cnt": bs * s - fg_cnt,
+    }
+    return TrainForward(total, metrics, props, feat)
 
 
 class Detections(NamedTuple):

@@ -127,11 +127,13 @@ class FasterRCNN(nn.Module):
         """(B, h, w, C) -> cls logits (B, h, w, A, 2), deltas (B, h, w, A, 4)."""
         return self.RCNN_rpn(feat)
 
-    def roi_head(self, pooled: torch.Tensor, train: bool = False):
+    def roi_head(self, pooled: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None):
         """Pooled rois (R, P, P, C) -> (cls_logits (R, classes), bbox_deltas
-        (R, 4 or 4 * classes)), both float32."""
+        (R, 4 or 4 * classes)), both float32.  ``train`` turns on the
+        head's dropout (VGG16), drawn from ``generator``."""
         dt = self.dtype
-        hidden = self.RCNN_top(pooled, train=train)
+        hidden = self.RCNN_top(pooled, train=train, generator=generator)
         cls = F.linear(hidden, self.RCNN_cls_score.weight.to(dt),
                        self.RCNN_cls_score.bias.to(dt))
         bbox = F.linear(hidden, self.RCNN_bbox_pred.weight.to(dt),

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``scda_tpu_torch/csrc/*.cu``).
 
-At first use nvcc compiles every source into one shared library with a
-plain C interface, and ctypes loads it.  The file name embeds a hash of
+At first use nvcc compiles every source at once, one process per file,
+and links the objects into one shared library with a plain C interface,
+which ctypes loads.  The file name embeds a hash of
 the sources and flags (``_build/libscda_kernels-<hash>.so``), so a stale
 binary is never loaded after a source change; the build writes a temp
 file and renames it, so concurrent first uses race safely (the scheme of
@@ -35,7 +36,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -68,8 +69,10 @@ def _nvcc() -> str:
 def build() -> str:
     """Compile the kernels unless a library for these sources exists.
 
-    Returns the library path.  nvcc's output (``-Xptxas -v``: registers,
-    shared memory and spills per kernel) is kept beside it as ``.log``.
+    Every ``.cu`` compiles in its own nvcc process, all started together;
+    one more links them.  Returns the library path.  nvcc's output
+    (``-Xptxas -v``: registers, shared memory and spills per kernel) is
+    kept beside it as ``.log``.
     """
     path = lib_path()
     if os.path.exists(path):
@@ -77,19 +80,37 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     cu = [p for p in sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [f"{tmp}.{i}.o" for i in range(len(cu))]
+    nvcc = _nvcc()
+    procs = []
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        for src, obj in zip(cu, objs):
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for src, proc in procs:
+            out, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {proc.returncode} "
+                                   f"on {os.path.basename(src)}:\n{out}")
+            logs.append(f"== {os.path.basename(src)}\n{out}")
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        r = subprocess.run(link, capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {r.returncode}:\n{' '.join(cmd)}\n"
-                f"{r.stdout}\n{r.stderr}")
+            raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
+                               f"{' '.join(link)}\n{r.stdout}\n{r.stderr}")
         with open(path + ".log", "w") as f:
-            f.write(r.stdout + r.stderr)
+            f.write("".join(logs))
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for leftover in [tmp, *objs]:
+            if os.path.exists(leftover):
+                os.unlink(leftover)
     return path
 
 
@@ -122,6 +143,18 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = lib().scda_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def refuse_grad(name: str, tensors, hint: str) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad.  A
+    launch through ctypes is invisible to autograd, so the wrapper's
+    output would carry no gradient, silently.  ``hint`` says what to do
+    instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but this wrapper launches a "
+            f"CUDA kernel outside autograd and would return a detached "
+            f"tensor; {hint}")
 
 
 def stream_ptr(device) -> int:

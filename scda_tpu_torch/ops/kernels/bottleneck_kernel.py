@@ -13,7 +13,14 @@ tiled GEMM (the 3x3 as an implicit GEMM whose copies zero-fill the
 padding) and the stream stays in L2 between them.  bf16 runs on the
 tensor cores (``mma.sync``), f32 on the CUDA cores.  On the H100 it is
 bound by arithmetic: about 4.6 GFLOP per block at every ResNet-101 stage
-at 512x1024.  Forward only: training remats the chain through the twin.
+at 512x1024.
+
+Training: :func:`bottleneck_chain` is an ``autograd.Function`` whose
+forward is the kernel and whose backward re-runs the twin under autograd
+in uniform f32 on the bf16-rounded inputs and weights, as the JAX
+``custom_vjp`` does (``bottleneck_kernel.py:304-323``): the linearisation
+point is the kernel's, the per-stage roundings are dropped.  The remat
+holds every block's f32 activations until the backward ends.
 """
 
 from __future__ import annotations
@@ -103,13 +110,15 @@ def _check(x, w1, b1, w2, b2, w3, b3):
             raise TypeError(f"bottleneck_chain: {name} must be floating point")
 
 
-def bottleneck_chain(x, w1, b1, w2, b2, w3, b3, *, dtype=torch.bfloat16):
-    """N identity bottlenecks over x (B, H, W, C) with the folded weights
-    of :func:`fold_bottleneck_params`; returns (B, H, W, C) contiguous in
-    ``dtype`` (float32 or bfloat16).  CPU tensors take the plain twin;
-    CUDA tensors launch the kernel, which needs C and F multiples of 64.
-    """
+def bottleneck_chain_fwd(x, w1, b1, w2, b2, w3, b3, *,
+                         dtype=torch.bfloat16):
+    """The forward alone, outside autograd: CPU tensors take the plain
+    twin; CUDA tensors launch the kernel, which needs C and F multiples
+    of 64.  Refuses inputs that require grad while grad mode is on."""
     _check(x, w1, b1, w2, b2, w3, b3)
+    _build.refuse_grad("bottleneck_chain_fwd", (x, w1, b1, w2, b2, w3, b3),
+                       "call bottleneck_chain, whose autograd.Function "
+                       "remats the backward")
     if x.device.type == "cpu":
         return bottleneck_chain_plain(x, w1, b1, w2, b2, w3, b3, dtype=dtype)
     if x.device.type != "cuda":
@@ -148,6 +157,40 @@ def bottleneck_chain(x, w1, b1, w2, b2, w3, b3, *, dtype=torch.bfloat16):
     _build.check(rc, name)
     bottleneck_chain.launches += 1
     return out
+
+
+class _BottleneckChain(torch.autograd.Function):
+    """Forward: K4 (the twin on the CPU).  Backward: the twin re-run
+    under autograd in f32 on the inputs rounded to ``dtype``."""
+
+    @staticmethod
+    def forward(ctx, dtype, x, *ws):
+        ctx.dtype = dtype
+        ctx.save_for_backward(x, *ws)
+        return bottleneck_chain_fwd(x, *ws, dtype=dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *ws = ctx.saved_tensors
+
+        def up(t):
+            return t.detach().to(ctx.dtype).float().requires_grad_()
+
+        ins = [up(x)] + [up(w) for w in ws]
+        with torch.enable_grad():
+            y = bottleneck_chain_plain(*ins, dtype=torch.float32)
+        grads = torch.autograd.grad(y, ins, g.float())
+        return (None,) + tuple(gr.to(t.dtype)
+                               for gr, t in zip(grads, (x, *ws)))
+
+
+def bottleneck_chain(x, w1, b1, w2, b2, w3, b3, *, dtype=torch.bfloat16):
+    """N identity bottlenecks over x (B, H, W, C) with the folded weights
+    of :func:`fold_bottleneck_params`; returns (B, H, W, C) contiguous in
+    ``dtype`` (float32 or bfloat16), differentiable in x and every
+    weight.  CPU tensors take the plain twin; CUDA tensors launch the
+    kernel, which needs C and F multiples of 64."""
+    return _BottleneckChain.apply(dtype, x, w1, b1, w2, b2, w3, b3)
 
 
 bottleneck_chain.launches = 0

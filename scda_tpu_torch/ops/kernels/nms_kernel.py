@@ -68,8 +68,13 @@ def nms_sorted(sboxes: torch.Tensor, svalid: torch.Tensor, *,
     sboxes (B, N, 4) float32 and svalid (B, N) bool, or (N, 4) and (N,).
     Returns the keep mask of svalid's shape: per row, the kept boxes in
     order are the NMS output, at most ``max_output`` of them.  CPU tensors
-    take the plain twin; CUDA tensors launch the kernel.
+    take the plain twin; CUDA tensors launch the kernel.  A keep mask has
+    no gradient: raises if grad mode is on and the boxes require grad
+    (the proposal layer runs under ``no_grad``, as JAX's stops it).
     """
+    _build.refuse_grad("nms_sorted", (sboxes,),
+                       "a keep mask passes no gradient back: detach the "
+                       "boxes or run under torch.no_grad()")
     if sboxes.device.type == "cpu":
         return nms_sorted_plain(sboxes, svalid, iou_threshold=iou_threshold,
                                 max_output=max_output)

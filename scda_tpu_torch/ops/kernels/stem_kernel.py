@@ -11,8 +11,13 @@ reach device memory.  On the H100 it is bound by conv1_2's 19.3 GFMA (at
 Numerics follow the Pallas kernel: inputs and weights in the compute
 dtype, f32 accumulation, biases added in f32, y1 rounded to the compute
 dtype once.  The JAX package's ``supported()`` gate reflects TPU VMEM
-budgets, not this card: any even H and W run here.  Forward only — the
-stem's layers are frozen in every supported config.
+budgets, not this card: any even H and W run here.
+
+Forward only, as in JAX, which wraps the Pallas stem's inputs in
+``stop_gradient`` (``vgg.py:176-178``): conv1_1 and conv1_2 are frozen in
+every config the card trains (``train/steps.py:check_train_config``).
+The wrapper raises when grad mode is on and an input requires grad,
+instead of returning a tensor with no gradient.
 """
 
 from __future__ import annotations
@@ -52,11 +57,18 @@ def vgg_stem_fused(x, k1, b1, k2, b2, *, dtype=torch.bfloat16):
 
     x (B, H, W, 3) float, H and W even; k1 (3, 3, 3, 64) and k2
     (3, 3, 64, 64) HWIO; b1, b2 (64,).  Returns (B, H/2, W/2, 64) in
-    ``dtype`` (float32 or bfloat16).  CPU tensors take the plain twin;
-    CUDA tensors launch the kernel.
+    ``dtype`` (float32 or bfloat16).  CPU tensors take the plain twin,
+    which carries gradients; CUDA tensors launch the kernel, which has no
+    backward, so there it raises if grad mode is on and any input
+    requires grad.
     """
     if x.device.type == "cpu":
         return vgg_stem_plain(x, k1, b1, k2, b2, dtype=dtype)
+    _build.refuse_grad(
+        "vgg_stem_fused", (x, k1, b1, k2, b2),
+        "the stem has no backward: conv1_1/conv1_2 must be frozen "
+        "(train.freeze_pretrained_layers) and the image must not require "
+        "grad")
     if dtype == torch.float32:
         name = "scda_vgg_stem_f32"
     elif dtype == torch.bfloat16:

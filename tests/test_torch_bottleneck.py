@@ -1,8 +1,9 @@
 """K4, the bottleneck chain of the port, against the JAX package on the
 CPU: ``fold_bottleneck_params`` against JAX's (exact in f32), the plain
 twin against ``chain_reference`` and against the Pallas kernel in
-interpret mode (as tests/test_bottleneck_kernel.py runs it), and the
-wrapper's CPU dispatch and shape checks.
+interpret mode (as tests/test_bottleneck_kernel.py runs it), the
+wrapper's CPU dispatch and shape checks, and the gradient of its
+autograd.Function (and of the fold) against ``jax.grad``.
 
 Tolerances: f32 rtol=atol=1e-5 (summation order only).  bf16 at N=1:
 within 2 bf16 ulps of the JAX value (ulp taken at max(|ref|, 2^-10)):
@@ -159,3 +160,74 @@ def test_wrapper_rejects_bad_inputs(rng):
         bk.bottleneck_chain(x[0], *ws)
     with pytest.raises(TypeError):
         bk.bottleneck_chain(x, ws[0].long(), *ws[1:])
+
+
+# ---- the backward ------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_matches_jax_grad_through_pallas(rng, dtype):
+    """``bottleneck_chain``'s autograd.Function (the CPU forward is the
+    twin; the backward remats it in f32 on the inputs rounded to
+    ``dtype``) against ``jax.grad`` through the Pallas kernel in
+    interpret mode, whose custom vjp remats the same way: every input's
+    gradient at rtol=atol=1e-4."""
+    import jax
+
+    b, h, w, c, f, n = 1, 4, 8, 512, 128, 2
+    x = rng.randn(b, h, w, c).astype(np.float32) * 0.5
+    ws = _chain_weights(rng, n, c, f)
+    g = rng.randn(b, h, w, c).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def loss(*args):
+        y = jbk.bottleneck_chain(*args, dtype=jdt, interpret=True)
+        return jnp.sum(y.astype(jnp.float32) * jnp.asarray(g).astype(jdt))
+
+    refs = jax.grad(loss, argnums=tuple(range(7)))(
+        jnp.asarray(x), *map(jnp.asarray, ws))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (x, *ws)]
+    out = bk.bottleneck_chain(*ins, dtype=tdt)
+    assert out.dtype == tdt
+    out.backward(torch.from_numpy(g).to(tdt))
+    for name, t, ref in zip(("x", "w1", "b1", "w2", "b2", "w3", "b3"), ins,
+                            refs):
+        assert t.grad.dtype == torch.float32
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_fold_is_differentiable_in_the_conv_weights(rng):
+    """Conv weights -> fold -> chain: the gradients of each block's three
+    conv kernels equal JAX's through ``fold_bottleneck_params`` and the
+    Pallas chain (interpret), f32 at rtol=atol=1e-4.  The BatchNorm
+    buffers stay frozen."""
+    import jax
+
+    c, f = 512, 128
+    trees, mods = _blocks(rng, 2, c, f)
+    x = rng.randn(1, 4, 8, c).astype(np.float32) * 0.5
+    g = rng.randn(1, 4, 8, c).astype(np.float32)
+
+    def loss(kernels):
+        ts = [{**t, **{f"conv{i}": {"kernel": k[i - 1]} for i in (1, 2, 3)}}
+              for t, k in zip(trees, kernels)]
+        ts = [{k: {kk: jnp.asarray(vv) for kk, vv in v.items()}
+               for k, v in t.items()} for t in ts]
+        y = jbk.bottleneck_chain(jnp.asarray(x), *jbk.fold_bottleneck_params(ts),
+                                 dtype=jnp.float32, interpret=True)
+        return jnp.sum(y * jnp.asarray(g))
+
+    kernels = [[jnp.asarray(t[f"conv{i}"]["kernel"]) for i in (1, 2, 3)]
+               for t in trees]
+    refs = jax.grad(loss)(kernels)
+    for m in mods:
+        for name, p in m.named_parameters():
+            p.requires_grad_(name.startswith("conv"))
+    bk.bottleneck_chain(torch.from_numpy(x), *bk.fold_bottleneck_params(mods),
+                        dtype=torch.float32).backward(torch.from_numpy(g))
+    for m, ref in zip(mods, refs):
+        assert all(not b.requires_grad for b in m.buffers())
+        for i in (1, 2, 3):
+            grad = getattr(m, f"conv{i}").weight.grad.permute(2, 3, 1, 0)
+            np.testing.assert_allclose(grad.numpy(), np.asarray(ref[i - 1]),
+                                       rtol=1e-4, atol=1e-4)

@@ -205,3 +205,133 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):
         bottleneck_kernel.bottleneck_chain(torch.zeros(1, 4, 4, 96, device=cuda),
                                            *ws, dtype=torch.float16)
+
+
+# ---- training: K1 at the proposal shape, the K2 backward, autograd -----
+
+def test_nms_kernel_matches_twin_at_the_training_shape(cuda):
+    """``train.proposal``: 12000 candidates per image -> 2000 at 0.7."""
+    rng = np.random.RandomState(12)
+    boxes = torch.from_numpy(_boxes(rng, 2, 12000, spread=900.0)).to(cuda)
+    valid = torch.from_numpy(rng.rand(2, 12000) < 0.95).to(cuda)
+    kw = dict(iou_threshold=0.7, max_output=2000)
+    keep = nms_kernel.nms_sorted(boxes, valid, **kw)
+    assert torch.equal(keep, nms_kernel.nms_sorted_plain(boxes, valid, **kw))
+    assert int(keep.sum()) == 4000
+
+
+def _bf16_ulp(v):
+    _, e = torch.frexp(torch.clamp(v.abs(), min=2.0 ** -10))
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,r,p,h,w,c,dense", [
+    (1, 3, 7, 5, 9, 64, False), (2, 17, 7, 32, 64, 512, False),
+    (1, 5, 7, 64, 128, 1024, False), (2, 9, 7, 16, 24, 64, True),
+])
+def test_roi_align_bwd_kernel_matches_twin(cuda, feat_dtype, b, r, p, h, w,
+                                           c, dense):
+    """dfeat from the atomicAdd kernel against the einsum twin: f32 at
+    rtol=1e-5 and atol=1e-5 of the largest |dfeat| (the order of the
+    adds varies, and an element that cancels keeps the rounding of its
+    largest terms); bf16 within 2 ulps.  ``dense``: every tap nonzero,
+    as adaptive rows can be."""
+    g = torch.Generator(device=cuda).manual_seed(r * c)
+    wy = torch.rand((b, r, p, h), generator=g, device=cuda)
+    wx = torch.rand((b, r, p, w), generator=g, device=cuda)
+    if not dense:
+        wy, wx = wy * (wy > 0.7), wx * (wx > 0.7)
+    cot = torch.randn((b, r, p, p, c), generator=g, device=cuda)
+    before = roi_align_kernel.roi_align_contract_bwd.launches
+    out = roi_align_kernel.roi_align_contract_bwd(wy, wx, cot, h, w,
+                                                  feat_dtype)
+    assert roi_align_kernel.roi_align_contract_bwd.launches == before + 1
+    ref = roi_align_kernel.roi_align_contract_bwd_plain(wy, wx, cot,
+                                                        feat_dtype)
+    assert out.dtype == feat_dtype and out.shape == (b, h, w, c)
+    if feat_dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5,
+                                   atol=1e-5 * ref.abs().max().item())
+    else:
+        ref = ref.float()
+        assert bool(((out.float() - ref).abs() <= 2 * _bf16_ulp(ref)).all())
+
+
+@pytest.mark.parametrize("sampling_ratio", [2, 0])
+def test_roi_align_autograd_on_card(cuda, sampling_ratio):
+    """Rois on both images of a batch of 2 through ``roi_align_grouped``:
+    the feature gradient (K2 backward) against the twin's under
+    autograd, f32 at rtol=atol=1e-5."""
+    from scda_tpu_torch.ops import roi_ops
+
+    rng = np.random.RandomState(sampling_ratio)
+    feat = torch.from_numpy(rng.randn(2, 12, 20, 64).astype(np.float32))
+    rois = torch.from_numpy(_boxes(rng, 2, 13, spread=250.0)).to(cuda)
+    kw = dict(output_size=7, sampling_ratio=sampling_ratio)
+    f_k = feat.to(cuda).requires_grad_()
+    out = roi_ops.roi_align_grouped(f_k, rois, **kw)
+    cot = torch.randn(out.shape, device=cuda)
+    before = roi_align_kernel.roi_align_contract_bwd.launches
+    out.backward(cot)
+    assert roi_align_kernel.roi_align_contract_bwd.launches == before + 1
+    wy, wx = roi_ops.roi_align_axis_weights(rois, 12, 20, **kw)
+    f_p = feat.to(cuda).requires_grad_()
+    roi_align_kernel.roi_align_contract_plain(wy, wx, f_p).backward(cot)
+    assert f_k.grad.abs().max() > 0
+    torch.testing.assert_close(f_k.grad, f_p.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bottleneck_chain_autograd_on_card(cuda, dtype):
+    """K4 forward, twin remat backward: every input's gradient against
+    the twin's own under autograd (f32 on the inputs rounded to
+    ``dtype``), at rtol=atol=1e-4."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.relu(torch.randn((1, 5, 7, 256), generator=g)).to(cuda)
+    ws = _chain_weights(g, 2, 256, 64, cuda)
+    cot = torch.randn((1, 5, 7, 256), generator=g).to(cuda, dtype)
+    ins = [t.clone().requires_grad_() for t in (x, *ws)]
+    before = bottleneck_kernel.bottleneck_chain.launches
+    bottleneck_kernel.bottleneck_chain(*ins, dtype=dtype).backward(cot)
+    assert bottleneck_kernel.bottleneck_chain.launches == before + 1
+    refs = [t.to(dtype).float().requires_grad_() for t in (x, *ws)]
+    bottleneck_kernel.bottleneck_chain_plain(
+        *refs, dtype=torch.float32).backward(cot.float())
+    for t, ref in zip(ins, refs):
+        assert t.grad.abs().max() > 0
+        torch.testing.assert_close(t.grad, ref.grad, rtol=1e-4, atol=1e-4)
+
+
+def _refusal_cases(cuda):
+    z = lambda *s: torch.zeros(s, device=cuda)
+    req = lambda t: t.requires_grad_()
+    ws = _chain_weights(torch.Generator().manual_seed(0), 1, 64, 64, cuda)
+    return {
+        "nms_sorted": lambda: nms_kernel.nms_sorted(
+            req(z(1, 8, 4)), torch.ones(1, 8, dtype=torch.bool, device=cuda),
+            iou_threshold=0.5, max_output=4),
+        "vgg_stem_fused": lambda: stem_kernel.vgg_stem_fused(
+            z(1, 4, 4, 3), req(z(3, 3, 3, 64)), z(64), z(3, 3, 64, 64), z(64)),
+        "roi_align_contract_fwd": lambda: roi_align_kernel.roi_align_contract_fwd(
+            z(1, 2, 3, 4), z(1, 2, 3, 6), req(z(1, 4, 6, 8))),
+        "roi_align_contract_bwd": lambda: roi_align_kernel.roi_align_contract_bwd(
+            z(1, 2, 3, 4), z(1, 2, 3, 6), req(z(1, 2, 3, 3, 8)), 4, 6),
+        "bottleneck_chain_fwd": lambda: bottleneck_kernel.bottleneck_chain_fwd(
+            req(z(1, 2, 3, 64)), *ws),
+    }
+
+
+@pytest.mark.parametrize("wrapper", [
+    "nms_sorted", "vgg_stem_fused", "roi_align_contract_fwd",
+    "roi_align_contract_bwd", "bottleneck_chain_fwd",
+])
+def test_wrapper_refuses_to_drop_a_gradient_on_card(cuda, wrapper):
+    """A ctypes wrapper called with grad mode on and an input that
+    requires grad raises instead of returning a detached tensor; under
+    ``no_grad`` it runs."""
+    call = _refusal_cases(cuda)[wrapper]
+    with pytest.raises(RuntimeError, match="grad|backward"):
+        call()
+    with torch.no_grad():
+        call()

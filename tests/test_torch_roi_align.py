@@ -1,12 +1,15 @@
 """RoI-Align of the port against the JAX package, on the CPU (f32): the
 axis-weight functions, the K2 plain twin against ``roi_align_contract``
 in interpret mode, and the grouped ops in the ``align``, adaptive
-(``sampling_ratio=0``) and ``align_legacy`` modes.
+(``sampling_ratio=0``) and ``align_legacy`` modes; the backward: its twin
+``roi_align_contract_bwd_plain`` against ``jax.vjp``, the autograd.Function
+on the CPU, and the gradients of the grouped and multiscale ops.
 
 Tolerances: the weights are elementwise f32 math, held at rtol=atol=1e-6;
 contractions sum in another order than XLA's, held at rtol=atol=1e-5."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -109,3 +112,112 @@ def test_grouped_matches_gather_form(rng):
     out = tro.roi_align_grouped(torch.from_numpy(feat), torch.from_numpy(rois),
                                 output_size=7, sampling_ratio=2)[0]
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+# ---- the backward ------------------------------------------------------
+
+def _mode_weights(rng, mode, b, r, p):
+    """Axis weights of one mode for random rois: ``align``
+    (sampling_ratio=2), ``adaptive`` (sampling_ratio=0, rows can be dense)
+    and ``legacy`` (the reference lineage's resize grid)."""
+    rois = jnp.asarray(_rois(rng, b, r))
+    if mode == "legacy":
+        ys, xs = jro._legacy_sample_coords(rois, 1 / 16, p)
+        wy, wx = jro._legacy_axis_weights(ys, H), jro._legacy_axis_weights(xs, W)
+    else:
+        wy, wx = jro.roi_align_axis_weights(
+            rois, H, W, output_size=p,
+            sampling_ratio={"align": 2, "adaptive": 0}[mode])
+    return np.array(wy), np.array(wx)
+
+
+@pytest.mark.parametrize("mode", ["align", "adaptive", "legacy"])
+def test_contract_bwd_twin_matches_jax_vjp(rng, mode):
+    """``roi_align_contract_bwd_plain`` against ``jax.vjp`` of the Pallas
+    kernel (interpret mode; its custom vjp is ``_contract_bwd``) and of
+    the einsum path, f32 at rtol=atol=1e-5; the port's autograd.Function
+    gives the twin's value exactly on the CPU."""
+    b, r, p, c = 2, 9, 7, 16
+    wy, wx = _mode_weights(rng, mode, b, r, p)
+    feat = rng.randn(b, H, W, c).astype(np.float32)
+    g = rng.randn(b, r, p, p, c).astype(np.float32)
+    jwy, jwx, jg = map(jnp.asarray, (wy, wx, g))
+    refs = []
+    for fn in (lambda f: roi_align_contract(jwy, jwx, f, interpret=True),
+               lambda f: jro._contract_axis_weights(jwy, jwx, f)):
+        _, vjp = jax.vjp(fn, jnp.asarray(feat))
+        refs.append(np.asarray(vjp(jg)[0]))
+
+    twy, twx, tg = map(torch.from_numpy, (wy, wx, g))
+    out = roi_align_kernel.roi_align_contract_bwd_plain(twy, twx, tg)
+    assert out.dtype == torch.float32 and out.shape == feat.shape
+    for ref in refs:
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+    f = torch.from_numpy(feat).requires_grad_()
+    roi_align_kernel.roi_align_contract(twy, twx, f).backward(tg)
+    assert torch.equal(f.grad, out)
+
+
+def test_contract_bwd_bf16_features(rng):
+    """bf16 features: dfeat is summed in f32 and cast once, as
+    ``_contract_bwd`` casts it: within one bf16 ulp of JAX's."""
+    wy, wx = _mode_weights(rng, "align", 1, 6, 7)
+    feat = rng.randn(1, H, W, 16).astype(np.float32)
+    g = rng.randn(1, 6, 7, 7, 16).astype(np.float32)
+    _, vjp = jax.vjp(lambda f: roi_align_contract(
+        jnp.asarray(wy), jnp.asarray(wx), f, interpret=True),
+        jnp.asarray(feat, jnp.bfloat16))
+    ref = np.asarray(vjp(jnp.asarray(g))[0], np.float32)
+    f = torch.from_numpy(feat).to(torch.bfloat16).requires_grad_()
+    roi_align_kernel.roi_align_contract(
+        torch.from_numpy(wy), torch.from_numpy(wx), f).backward(
+            torch.from_numpy(g))
+    assert f.grad.dtype == torch.bfloat16
+    _, e = np.frexp(np.maximum(np.abs(ref), 2.0 ** -10))
+    assert np.all(np.abs(f.grad.float().numpy() - ref) <= np.ldexp(1.0, e - 8))
+
+
+@pytest.mark.parametrize("kw", _MODES + [None])
+def test_grouped_ops_differentiate_as_jax(rng, kw):
+    """The grouped ops reach the backward through ``roi_align_contract``
+    with no change of their own: their feature gradients equal
+    ``jax.vjp`` of the JAX ops (``None``: ``align_legacy``), f32 at
+    rtol=atol=1e-5."""
+    feat = rng.randn(2, H, W, 8).astype(np.float32)
+    rois = _rois(rng, 2, 10)
+    if kw is None:
+        jfn = lambda f: jro.roi_align_legacy_grouped(f, jnp.asarray(rois))
+        tfn = lambda f: tro.roi_align_legacy_grouped(f, torch.from_numpy(rois))
+    else:
+        jfn = lambda f: jro.roi_align_grouped(f, jnp.asarray(rois), **kw)
+        tfn = lambda f: tro.roi_align_grouped(f, torch.from_numpy(rois), **kw)
+    out, vjp = jax.vjp(jfn, jnp.asarray(feat))
+    g = rng.randn(*out.shape).astype(np.float32)
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    f = torch.from_numpy(feat).requires_grad_()
+    tfn(f).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(f.grad.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_multiscale_pool_differentiates_as_jax(rng):
+    """``pool_rois_multiscale``: both pyramid levels get JAX's gradient
+    (small rois pool from stride 8, the others from stride 16)."""
+    from scda_tpu.config import ModelConfig
+    from scda_tpu.models.faster_rcnn import pool_rois_multiscale as jpool
+    from scda_tpu_torch.models.faster_rcnn import pool_rois_multiscale as tpool
+
+    cfg = ModelConfig(multiscale_roi=True, ms_fine_threshold=48.0)
+    f8 = rng.randn(2, 2 * H, 2 * W, 8).astype(np.float32)
+    f16 = rng.randn(2, H, W, 8).astype(np.float32)
+    rois = _rois(rng, 2, 12)
+    rois[:, 2:6, 2:] = rois[:, 2:6, :2] + 20.0      # small: the fine level
+    out, vjp = jax.vjp(lambda a, b: jpool(a, b, jnp.asarray(rois), cfg),
+                       jnp.asarray(f8), jnp.asarray(f16))
+    g = rng.randn(*out.shape).astype(np.float32)
+    ref8, ref16 = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    t8, t16 = (torch.from_numpy(x).requires_grad_() for x in (f8, f16))
+    tpool(t8, t16, torch.from_numpy(rois), cfg).backward(torch.from_numpy(g))
+    assert np.abs(ref8).max() > 0 and np.abs(ref16).max() > 0
+    np.testing.assert_allclose(t8.grad.numpy(), ref8, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t16.grad.numpy(), ref16, rtol=1e-5, atol=1e-5)

@@ -19,24 +19,31 @@ non-zero:
   2. build   — compiles ``scda_tpu_torch/csrc/*.cu`` from the checkout;
   3. kernels — each kernel against its plain PyTorch twin on the inputs
      one forward of a path gives it (plus adversarial / dense cases),
-     with times (median of CUDA-event timings);
+     with times (median of CUDA-event timings), its bound (``roofline``:
+     the least time the card could take for the same work) and, for the
+     stem and the bottleneck chain, the time of cuDNN's calls for the
+     same function on the same inputs (``library_ms``, a yardstick that
+     no path of the port calls);
   4. slices  — per path: the bf16 serving run on 8 structured frames
-     (img/s, launch counts per image, detections), the f32 run, and the
+     (img/s, launch counts per image, detections), one ``torch.profiler``
+     pass over it (device time per image by kind of kernel), the f32 run, and the
      f32 card run against the same slice on the CPU (which takes the
      plain twins); for ResNet-101 also one bf16 forward with the lateral
      projection after pooling;
   5. train   — per path the source-only train step (bf16 compute, f32
      params; VGG16 at bs 1 and 8, ResNet-101 multiscale at bs 1): img/s,
-     losses, peak memory, launches per step, and the total loss of a
-     fixed batch before and after; K1 at the training shape and the K2
-     backward against their twins on the inputs a step gives them; then
+     losses, peak memory, launches per step, the total loss of a fixed
+     batch before and after, and a profiler pass over three steps; K1
+     and K3 at the training shape and the K2 backward against their
+     twins on the inputs a step gives them; then
      one f32 step's gradients with the kernels against the same step
      with every wrapper swapped for its twin (also with the twins'
      outputs perturbed by rounding-sized noise, which sets the bound),
      and its losses against the same step on the CPU.
 
 The last lines are the ``nvidia-smi`` line, the kernels summary and
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -63,6 +70,13 @@ FWD_GAP = 1e-5
 PERTURB = 1e-6
 PERTURB_SEEDS = (0, 1)
 PERTURB_FACTOR = 4.0
+# Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
+# sheet): the yardstick of every ``bound_ms`` below.
+PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 operands
+PEAK_F32_FLOPS = 67e12       # CUDA cores, f32 operands
+PEAK_BYTES_PER_S = 3.35e12   # device memory
+NO_LIBRARY = ("no single PyTorch call computes it (torchvision's nms and "
+              "roi_align are absent)")
 
 
 def emit(obj) -> None:
@@ -112,16 +126,156 @@ def bf16_ulp(torch, v):
     return torch.ldexp(torch.ones_like(a), e - 8)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def roofline(flops, moved_bytes, peak_flops):
+    """The least time the card could take for the work:
+
+        bound_ms = max(flops / peak_flops, bytes / PEAK_BYTES_PER_S) * 1e3
+
+    ``flops`` are the operations the function does on these inputs (two
+    per multiply-add), ``peak_flops`` the card's peak for their type, and
+    ``moved_bytes`` every input read once plus every output written once."""
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = moved_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": int(flops), "bytes": int(moved_bytes)}
+
+
+def nms_bound(torch, sb, sv, keep):
+    """K1: the work depends on the data.  A greedy pass tests each valid
+    box against the boxes kept before it and ends at the last kept box;
+    an IoU is about 16 f32 operations.  Bytes: boxes and valid in, mask
+    out."""
+    k = keep.long()
+    pos = torch.arange(k.shape[1], device=k.device)[None]
+    last = (k * pos).max(dim=1, keepdim=True).values
+    kept_before = k.cumsum(1) - k
+    pairs = int((kept_before * (sv.bool() & (pos <= last))).sum().item())
+    return roofline(16 * pairs, nbytes(sb, sv, keep), PEAK_F32_FLOPS)
+
+
+def roi_bound(wy, wx, feat, out):
+    """K2 forward and backward: a sparse product.  Bin (r, p, q) needs
+    nnz(wy[r, p]) * nnz(wx[r, q]) multiply-adds per channel, with f32
+    weights; ``feat`` is the (B, H, W, C) map read (forward) or written
+    (backward), ``out`` the (B, R, P, Q, C) tensor on the other side."""
+    ny = (wy != 0).sum(-1).sum(-1).double()      # (B, R)
+    nx = (wx != 0).sum(-1).sum(-1).double()
+    pairs = float((ny * nx).sum().item())
+    return roofline(2 * pairs * feat.shape[-1], nbytes(wy, wx, feat, out),
+                    PEAK_F32_FLOPS)
+
+
+def stem_bound(x, out):
+    """K3 in bf16: conv1_1 (27 -> 64) and conv1_2 (576 -> 64) at every
+    input pixel; the image and the weights in, the pooled map out."""
+    b, h, w, _ = x.shape
+    flops = 2 * b * h * w * 64 * (27 + 576)
+    moved = (x.numel() + (27 + 576) * 64 + out.numel()) * 2 + 2 * 64 * 4
+    return roofline(flops, moved, PEAK_BF16_FLOPS)
+
+
+def chain_bound(x, w1):
+    """K4 in bf16: N blocks of 1x1 C->F, 3x3 F->F, 1x1 F->C at every
+    pixel; the stream in and out once, each block's weights and biases."""
+    m, c = x.numel() // x.shape[-1], x.shape[-1]
+    n, f = int(w1.shape[0]), int(w1.shape[2])
+    flops = 2 * m * n * (2 * c * f + 9 * f * f)
+    moved = 2 * m * c * 2 + n * ((2 * c * f + 9 * f * f) * 2 + (2 * f + c) * 4)
+    return roofline(flops, moved, PEAK_BF16_FLOPS)
+
+
+def stem_library(torch, x, k1, b1, k2, b2):
+    """K3's yardstick: cuDNN through ``F.conv2d`` + relu + ``F.conv2d`` +
+    relu + ``F.max_pool2d``, channels_last bf16.  Returns (run, to_nhwc)."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    xc = x.to(bf).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    w1c, w2c = (k.to(bf).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last) for k in (k1, k2))
+    b1h, b2h = b1.to(bf), b2.to(bf)
+
+    def run():
+        y = torch.relu(F.conv2d(xc, w1c, b1h, padding=1))
+        return F.max_pool2d(torch.relu(F.conv2d(y, w2c, b2h, padding=1)), 2, 2)
+
+    return run, lambda y: y.permute(0, 2, 3, 1)
+
+
+def chain_library(torch, x, w1, b1, w2, b2, w3, b3):
+    """K4's yardstick: the eager chain of folded ``F.conv2d`` (1x1, 3x3
+    pad 1, 1x1) with relu and the residual add, channels_last bf16."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    n, c, f = w1.shape
+
+    def cl(t):
+        return t.to(bf).contiguous(memory_format=torch.channels_last)
+
+    xc = cl(x.permute(0, 3, 1, 2))
+    k1 = [cl(w1[i].t().reshape(f, c, 1, 1)) for i in range(n)]
+    k2 = [cl(w2[i].reshape(3, 3, f, f).permute(3, 2, 0, 1)) for i in range(n)]
+    k3 = [cl(w3[i].t().reshape(c, f, 1, 1)) for i in range(n)]
+    c1, c2, c3 = ([b[i].reshape(-1).to(bf) for i in range(n)]
+                  for b in (b1, b2, b3))
+
+    def run():
+        y = xc
+        for i in range(n):
+            t = torch.relu(F.conv2d(y, k1[i], c1[i]))
+            t = torch.relu(F.conv2d(t, k2[i], c2[i], padding=1))
+            y = torch.relu(F.conv2d(t, k3[i], c3[i]) + y)
+        return y
+
+    return run, lambda y: y.permute(0, 2, 3, 1)
+
+
+def graph_ms(torch, fn, repeats: int) -> float:
+    """Median device time of ``fn()`` replayed from a CUDA graph: what
+    its launches take when the host's issue rate is out of the way."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, repeats)
+
+
+def library_times(torch, run, to_nhwc, plain_out, what):
+    """The yardstick's times, after a check that it computes the same
+    function: within 2^-3 of the twin's largest magnitude (it rounds at
+    other places; a wrong layout would be off by that magnitude itself)."""
+    err = float((to_nhwc(run()).float() - plain_out.float()).abs().max().item())
+    top = float(plain_out.float().abs().max().item())
+    require(err <= 2.0 ** -3 * top,
+            f"{what}: the library yardstick is not the same function "
+            f"(max abs err {err}, max|plain| {top})")
+    return {"library_ms": time_ms(torch, run, 20),
+            "library_graph_ms": graph_ms(torch, run, 20),
+            "library_max_abs_err": err}
+
+
 def make_frames(cfg, n, seed):
-    """Distinct structured 1024x2048 scenes through the shared host prep
+    """Distinct structured 1024x2048 scenes through the port's host prep
     (BGR, scale rule, mean subtraction, fixed canvas; gt boxes scaled and
     padded as the loader does).  Returns (images, infos, gt_boxes,
     num_boxes), lists of per-frame arrays with a batch axis of 1."""
     import numpy as np
 
-    from scda_tpu.data.pipeline import prepare_gt_boxes, prepare_image
-    from scda_tpu.data.synthetic import SYNTH_CLASSES, _draw_scene
-    from scda_tpu.data.voc import ImageRecord
+    from scda_tpu_torch.data.pipeline import prepare_gt_boxes, prepare_image
+    from scda_tpu_torch.data.synthetic import SYNTH_CLASSES, _draw_scene
+    from scda_tpu_torch.data.voc import ImageRecord
 
     rng = np.random.RandomState(seed)
     images, infos, gts, nums = [], [], [], []
@@ -179,7 +333,7 @@ class Port:
     """The port's modules, imported once the device check has passed."""
 
     def __init__(self, torch):
-        from scda_tpu.config import config_from_yaml, get_config, replace_path
+        from scda_tpu_torch.config import config_from_yaml, get_config, replace_path
         from scda_tpu_torch.evals.detect import (
             bf16_inference_params, detection_match_rate,
         )
@@ -275,7 +429,69 @@ class Port:
               "img_per_s_median": median(rates), "img_per_s": rates,
               "launches": launches, **dets_info,
               "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        self.profile_pass(
+            lambda: [self.detector.forward_inference(model, im, inf, cfg)
+                     for im, inf in zip(images, infos)],
+            len(images), path, 1e3 / median(rates))
         return launches
+
+    def profile_pass(self, run, units, path, wall_ms_per_unit):
+        """One ``torch.profiler`` pass over ``run()`` (``units`` images or
+        steps), after the main path's counts were read: device time and
+        kernels per unit, the share of each kind of kernel, the ten
+        longest kernels, and the busy share, device time over the
+        unprofiled wall time ``wall_ms_per_unit`` (the profiler slows the
+        host).  A measurement, not a check."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        kinds = (("K1 nms", ("nms_",)), ("K2 roi_align", ("roi_align",)),
+                 ("K3 vgg_stem", ("vgg_stem",)),
+                 ("K4 bottleneck_chain", ("chain_wgmma", "chain_gemm")),
+                 ("library conv/gemm", ("cudnn", "cutlass", "xmma", "gemm",
+                                        "gemv", "convolve", "wgrad", "dgrad",
+                                        "fprop", "nchwToNhwc", "nhwcToNchw",
+                                        "cublas")),
+                 ("copy", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
+                 ("optimizer foreach", ("multi_tensor",)),
+                 ("sort/scan/reduce", ("sort", "Sort", "scan", "reduce",
+                                       "Reduce", "cub::", "topk", "TopK")),
+                 ("elementwise", ("elementwise", "vectorized", "Elementwise",
+                                  "fill", "index", "gather", "scatter",
+                                  "max_pool", "where", "masked")))
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        total = sum(ms for _, _, ms in rows)
+        if not total:
+            emit({"phase": "profile", "path": path,
+                  "error": "the profiler saw no device time"})
+            return
+        by_kind = {}
+        for key, _, ms in rows:
+            kind = next((k for k, words in kinds
+                         if any(w in key for w in words)), "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        top = sorted(rows, key=lambda r: -r[2])[:10]
+        emit({"phase": "profile", "path": path, "units": units,
+              "device_ms_per_unit": total / units,
+              "kernels_per_unit": sum(n for _, n, _ in rows) / units,
+              "wall_ms_per_unit_unprofiled": wall_ms_per_unit,
+              "device_busy_share": total / units / wall_ms_per_unit,
+              "share_by_kind": {k: v / total for k, v in sorted(
+                  by_kind.items(), key=lambda kv: -kv[1])},
+              "ms_per_unit_by_kind": {k: v / units for k, v in sorted(
+                  by_kind.items(), key=lambda kv: -kv[1])},
+              "top_kernels": [{"name": k[:80], "per_unit": n / units,
+                               "ms_per_unit": ms / units}
+                              for k, n, ms in top]})
 
     def vs_cpu(self, cfg32, state, images_np, infos_np, outs32, frames, path):
         """The f32 card run against the same slice on the CPU."""
@@ -391,6 +607,20 @@ class Port:
                     f"K4 {label} {dt}: {bad} outputs outside {tol}")
         return out
 
+    def stem_times(self, x, k1, b1, k2, b2, plain_out):
+        """K3 in bf16 on one set of inputs: the kernel, its twin, its
+        bound and the cuDNN yardstick."""
+        torch = self.torch
+        args = (x, k1, b1, k2, b2)
+        return {
+            "ms": time_ms(torch, lambda: self.sk.vgg_stem_fused(
+                *args, dtype=torch.bfloat16), 20),
+            "plain_ms": time_ms(torch, lambda: self.sk.vgg_stem_plain(
+                *args, dtype=torch.bfloat16), 5),
+            **stem_bound(x, plain_out),
+            **library_times(torch, *stem_library(torch, *args), plain_out,
+                            f"K3 {list(x.shape)}")}
+
     # ---- training --------------------------------------------------------
 
     def train_cfgs(self, preset, bs, yaml=None):
@@ -443,8 +673,8 @@ class Port:
 
     def train_run(self, cfg, model, batches, path, warmup, steps,
                   want_per_step, record=False):
-        """The main train path: ``warmup`` steps (the first recording K1's
-        and the K2 backward's inputs with ``record``), then ``steps``
+        """The main train path: ``warmup`` steps (the first recording K1's,
+        K3's and the K2 backward's inputs with ``record``), then ``steps``
         timed steps with every launch count set to 0 just before and
         read just after.  Returns (launches, records)."""
         torch = self.torch
@@ -457,9 +687,11 @@ class Port:
             batch = batches[i % len(batches)]
             if i == 0 and record:
                 with Recorder(self.nms, "nms_sorted") as rec_nms, \
+                        Recorder(self.vgg, "vgg_stem_fused") as rec_stem, \
                         Recorder(self.rk, "roi_align_contract_bwd") as rec_bwd:
                     state, first = step(state, *batch)
-                records = {"nms": rec_nms.calls, "roi_align_bwd": rec_bwd.calls}
+                records = {"nms": rec_nms.calls, "vgg_stem": rec_stem.calls,
+                           "roi_align_bwd": rec_bwd.calls}
             else:
                 state, m = step(state, *batch)
                 first = m if i == 0 else first
@@ -500,6 +732,14 @@ class Port:
         want = {k: v * steps for k, v in want_per_step.items()}
         require(launches == want,
                 f"{path}: launches {launches}, expected {want}")
+
+        holder = [state]
+
+        def three_steps():
+            for i in range(3):
+                holder[0], _ = step(holder[0], *batches[i % len(batches)])
+
+        self.profile_pass(three_steps, 3, path, 1e3 * bs / median(rates))
         return launches, records
 
     def check_roi_bwd(self, calls):
@@ -757,6 +997,8 @@ def vgg16_path(port, device, frames):
         "ms": time_ms(torch, lambda: port.nk.nms_sorted(sb, sv, **kw), 20),
         "plain_ms": time_ms(torch, lambda: port.nk.nms_sorted_plain(
             sb, sv, **kw), 3),
+        **nms_bound(torch, sb, sv, port.nk.nms_sorted_plain(sb, sv, **kw)),
+        "library_ms": None, "library_reason": NO_LIBRARY,
     }
     emit({"phase": "kernel", "path": "vgg16", "kernel": "nms",
           "cases": nms_results, **summary["nms"]})
@@ -769,6 +1011,8 @@ def vgg16_path(port, device, frames):
             wy, wx, feat16), 20),
         "plain_ms": time_ms(torch, lambda: port.rk.roi_align_contract_plain(
             wy, wx, feat16), 20),
+        **roi_bound(wy, wx, feat16, rec_roi.results[0]),
+        "library_ms": None, "library_reason": NO_LIBRARY,
     }
     emit({"phase": "kernel", "path": "vgg16", "kernel": "roi_align",
           "shape": {"wy": list(wy.shape), "wx": list(wx.shape),
@@ -796,14 +1040,8 @@ def vgg16_path(port, device, frames):
                              "max_abs_err": float(err.max().item()),
                              "outside_tolerance": bad, "tolerance": tol})
         require(bad == 0, f"K3 {dt}: {bad} outputs outside {tol}")
-    stem_args16 = (x, k1, b1, k2, b2)
-    summary["vgg_stem"] = {
-        "max_abs_err": stem_err,
-        "ms": time_ms(torch, lambda: port.sk.vgg_stem_fused(
-            *stem_args16, dtype=torch.bfloat16), 20),
-        "plain_ms": time_ms(torch, lambda: port.sk.vgg_stem_plain(
-            *stem_args16, dtype=torch.bfloat16), 5),
-    }
+    summary["vgg_stem"] = {"max_abs_err": stem_err,
+                           **port.stem_times(x, k1, b1, k2, b2, p_out)}
     emit({"phase": "kernel", "path": "vgg16", "kernel": "vgg_stem",
           "shape": list(x.shape), "cases": stem_results,
           **summary["vgg_stem"]})
@@ -856,13 +1094,22 @@ def res101_ms_path(port, device, frames):
         x, w1 = args[0], args[1]
         label = f"layer{i + 1}"
         chain_results += port.check_chain(args, label, 2.0 ** -5)
+        launch = port.bk.chain_launcher(*args, dtype=torch.bfloat16)
+        p_out = port.bk.bottleneck_chain_plain(*args, dtype=torch.bfloat16)
         stage_times.append({
             "stage": label, "x": list(x.shape), "F": int(w1.shape[2]),
             "blocks": int(w1.shape[0]),
             "ms": time_ms(torch, lambda: port.bk.bottleneck_chain(
                 *args, dtype=torch.bfloat16), 20),
+            # The launches alone (weights packed once), eager and from a
+            # CUDA graph: ``ms`` also packs the weights on every call.
+            "launch_ms": time_ms(torch, launch, 20),
+            "launch_graph_ms": graph_ms(torch, launch, 20),
             "plain_ms": time_ms(torch, lambda: port.bk.bottleneck_chain_plain(
-                *args, dtype=torch.bfloat16), 5)})
+                *args, dtype=torch.bfloat16), 5),
+            **chain_bound(x, w1),
+            **library_times(torch, *chain_library(torch, *args), p_out,
+                            f"K4 {label}")})
     x3 = rec_chain.calls[2][0][0]
     c, f = x3.shape[-1], rec_chain.calls[2][0][1].shape[2]
     g = torch.Generator().manual_seed(11)
@@ -876,12 +1123,15 @@ def res101_ms_path(port, device, frames):
     chain_results += port.check_chain(dense, "dense_layer3_n1", 2.0 ** -6)
     summary["bottleneck_chain"] = {
         "max_abs_err": max(r["max_abs_err"] for r in chain_results),
-        "ms": sum(s["ms"] for s in stage_times),
-        "plain_ms": sum(s["plain_ms"] for s in stage_times),
+        **{key: sum(s[key] for s in stage_times)
+           for key in ("ms", "launch_ms", "launch_graph_ms", "plain_ms",
+                       "bound_ms", "flops", "bytes", "library_ms",
+                       "library_graph_ms")},
+        "bound_by": max(stage_times, key=lambda s: s["bound_ms"])["bound_by"],
+        "stages": stage_times,
     }
     emit({"phase": "kernel", "path": "res101_ms", "kernel": "bottleneck_chain",
-          "stages": stage_times, "cases": chain_results,
-          **summary["bottleneck_chain"]})
+          "cases": chain_results, **summary["bottleneck_chain"]})
 
     nms_err, nms_results = port.check_nms(rec_nms.calls,
                                           ("proposals", "per_class"))
@@ -894,8 +1144,9 @@ def res101_ms_path(port, device, frames):
                   "ms": time_ms(torch, lambda: port.rk.roi_align_contract(
                       *a), 20),
                   "plain_ms": time_ms(torch, lambda: port.rk.
-                                      roi_align_contract_plain(*a), 20)}
-                 for a, _ in rec_roi.calls]
+                                      roi_align_contract_plain(*a), 20),
+                  **roi_bound(*a, out)}
+                 for (a, _), out in zip(rec_roi.calls, rec_roi.results)]
     emit({"phase": "kernel", "path": "res101_ms", "kernel": "nms",
           "cases": nms_results, "max_abs_err": float(nms_err)})
     emit({"phase": "kernel", "path": "res101_ms", "kernel": "roi_align",
@@ -948,10 +1199,30 @@ def train_kernel_checks(port, records, path):
         "train_shape": list(sv.shape), "train_max_output": kw["max_output"],
         "train_ms": time_ms(torch, lambda: port.nk.nms_sorted(sb, sv, **kw), 20),
         "train_plain_ms": time_ms(torch, lambda: port.nk.nms_sorted_plain(
-            sb, sv, **kw), 2)}
+            sb, sv, **kw), 2),
+        **{f"train_{k}": v for k, v in nms_bound(
+            torch, sb, sv, port.nk.nms_sorted_plain(sb, sv, **kw)).items()}}
     emit({"phase": "kernel", "path": path, "kernel": "nms",
           "cases": nms_results, "max_abs_err": float(nms_err),
           **summary["nms"]})
+
+    for (args, _) in records["vgg_stem"]:   # K3 at the train batch, bf16
+        args = tuple(a.detach() for a in args)
+        with torch.no_grad():
+            k_out = port.sk.vgg_stem_fused(*args, dtype=torch.bfloat16).float()
+            p_out = port.sk.vgg_stem_plain(*args, dtype=torch.bfloat16).float()
+            err = (k_out - p_out).abs()
+            bad = int((err > 2 * bf16_ulp(torch, p_out)).sum().item())
+            require(bad == 0, f"K3 at {list(args[0].shape)}: {bad} outputs "
+                              f"outside 2 bf16 ulps")
+            summary["vgg_stem"] = {
+                "max_abs_err": float(err.max().item()),
+                "train_shape": list(args[0].shape),
+                **{f"train_{k}": v for k, v in port.stem_times(
+                    *args, p_out).items()}}
+        emit({"phase": "kernel", "path": path, "kernel": "vgg_stem",
+              "tolerance": "2 bf16 ulps (ulp at max(|plain|, 2^-10))",
+              "outside_tolerance": bad, **summary["vgg_stem"]})
 
     bwd_err, bwd_results = port.check_roi_bwd(records["roi_align_bwd"])
     times = []
@@ -962,10 +1233,15 @@ def train_kernel_checks(port, records, path):
                 wy, wx, g, h, w, dt), 20),
             "plain_ms": time_ms(torch, lambda: port.rk.
                                 roi_align_contract_bwd_plain(wy, wx, g, dt),
-                                5)})
-    summary["roi_align_bwd"] = {"max_abs_err": bwd_err,
-                                "ms": sum(t["ms"] for t in times),
-                                "plain_ms": sum(t["plain_ms"] for t in times)}
+                                5),
+            **roi_bound(wy, wx, port.rk.roi_align_contract_bwd(
+                wy, wx, g, h, w, dt), g)})
+    summary["roi_align_bwd"] = {
+        "max_abs_err": bwd_err,
+        **{key: sum(t[key] for t in times)
+           for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes")},
+        "bound_by": max(times, key=lambda t: t["bound_ms"])["bound_by"],
+        "library_ms": None, "library_reason": NO_LIBRARY}
     emit({"phase": "kernel", "path": path, "kernel": "roi_align_bwd",
           "cases": bwd_results, "times": times, **summary["roi_align_bwd"]})
     return summary
@@ -1028,8 +1304,6 @@ def main() -> int:
               "(scda_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    # scda_tpu/__init__.py imports jax only when SCDA_PLATFORM is set.
-    os.environ.pop("SCDA_PLATFORM", None)
 
     import torch
 
@@ -1080,8 +1354,8 @@ def main() -> int:
         timings[name] = time.perf_counter() - t0
         emit({"phase": "path_done", "path": name, "seconds": timings[name]})
         torch.cuda.empty_cache()
-    require("jax" not in sys.modules and "flax" not in sys.modules,
-            "the port imported JAX")
+    require(not {"jax", "flax", "scda_tpu"} & set(sys.modules),
+            "the port imported JAX or the JAX package")
 
     sources = {
         "nms": ("scda_tpu_torch/csrc/nms.cu",
@@ -1101,7 +1375,8 @@ def main() -> int:
         require(sum(by_path.values()) > 0, f"kernel {name} never launched")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
-                        "launches_by_path": by_path, **summaries[name]})
+                        "launches_by_path": by_path, **summaries[name],
+                        "kernel_ms": summaries[name]["ms"]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

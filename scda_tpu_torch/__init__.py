@@ -7,13 +7,15 @@ Pallas kernel on the ported path is a hand-written CUDA kernel under
 with a plain PyTorch twin of the same signature.  A wrapper runs the twin
 for CPU tensors and the kernel for CUDA tensors.
 
-This package imports ``torch`` and never ``jax`` or ``flax``.  It shares
-the JAX package's host modules that import neither: ``scda_tpu.config``,
-``scda_tpu.data``, ``scda_tpu.evals.voc_eval`` and ``scda_tpu.native``.
+This package imports ``torch`` and never ``jax`` or ``flax``, and
+nothing of the JAX package: it keeps its own copies of the host modules
+it needs (``config``, ``data``, ``native``, ``evals.voc_eval``,
+``evals.coco_protocol``, ``utils.logging``), each held equal to its
+original by ``tests/test_torch_host.py``.
 
-Ported so far (slices 1 and 2): VGG16, ResNet-50/101/152 and tiny
-Faster R-CNN inference in the ``align`` and ``align_legacy`` pooling
-modes, with multiscale RoI pooling.
+Ported so far: VGG16, ResNet-50/101/152 and tiny Faster R-CNN inference
+in the ``align`` and ``align_legacy`` pooling modes, with multiscale RoI
+pooling, and source-only training.
 """
 
 __version__ = "0.1.0"

@@ -56,7 +56,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from scda_tpu.config import (
+    from scda_tpu_torch.config import (
         PRESETS, apply_overrides, parse_set_list, replace_path,
     )
 
@@ -77,7 +77,7 @@ def main(argv=None) -> int:
     if args.dataset == "synthetic":
         import tempfile
 
-        from scda_tpu.data.synthetic import make_synthetic_dataset
+        from scda_tpu_torch.data.synthetic import make_synthetic_dataset
 
         synth_kw = {}
         suffix = f"_fog{args.synth_fog}" if args.synth_fog else ""
@@ -92,14 +92,14 @@ def main(argv=None) -> int:
             seed=100, split="val", fog=args.synth_fog, **synth_kw,
         )
     else:
-        from scda_tpu.data.voc import get_dataset
+        from scda_tpu_torch.data.voc import get_dataset
 
         dataset = get_dataset(args.dataset)
 
     cfg = replace_path(cfg, "model.num_classes", dataset.num_classes)
     if (cfg.data.auto_canvas and not args.synth_size
             and args.dataset != "synthetic"):
-        from scda_tpu.data.pipeline import infer_canvas
+        from scda_tpu_torch.data.pipeline import infer_canvas
 
         canvas = infer_canvas(dataset.records, cfg.data)
         if canvas != tuple(cfg.data.image_size):
@@ -107,7 +107,7 @@ def main(argv=None) -> int:
                   f"(from record stats)")
             cfg = replace_path(cfg, "data.image_size", canvas)
 
-    from scda_tpu.evals.voc_eval import evaluate_detections
+    from scda_tpu_torch.evals.voc_eval import evaluate_detections
     from scda_tpu_torch.bridge import load_reference_checkpoint
     from scda_tpu_torch.evals.detect import run_inference
     from scda_tpu_torch.models.faster_rcnn import build_model

@@ -77,7 +77,7 @@ def parse_args(argv=None):
 
 def build_config(args):
     """The JAX CLI's config: preset, YAML, flags, ``--set`` overrides."""
-    from scda_tpu.config import (
+    from scda_tpu_torch.config import (
         PRESETS, apply_overrides, config_from_yaml, parse_set_list,
         replace_path,
     )
@@ -105,10 +105,10 @@ def build_config(args):
 
 def get_dataset(args, cfg):
     if args.dataset != "synthetic":
-        from scda_tpu.data.voc import get_dataset as registered
+        from scda_tpu_torch.data.voc import get_dataset as registered
 
         return registered(args.dataset)
-    from scda_tpu.data.synthetic import make_synthetic_dataset
+    from scda_tpu_torch.data.synthetic import make_synthetic_dataset
 
     kw, suffix = {}, ""
     if args.synth_classes:
@@ -135,7 +135,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from scda_tpu.config import replace_path
+    from scda_tpu_torch.config import replace_path
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -143,8 +143,8 @@ def main(argv=None) -> int:
               "for the plain-PyTorch path)", file=sys.stderr)
         return 2
 
-    from scda_tpu.data.pipeline import DataLoader
-    from scda_tpu.utils.logging import MetricsLogger
+    from scda_tpu_torch.data.pipeline import DataLoader
+    from scda_tpu_torch.utils.logging import MetricsLogger
     from scda_tpu_torch.bridge import load_reference_checkpoint
     from scda_tpu_torch.models.faster_rcnn import build_model, init_weights
     from scda_tpu_torch.train import checkpoint as ckpt
@@ -156,7 +156,7 @@ def main(argv=None) -> int:
     cfg = replace_path(cfg, "model.num_classes", dataset.num_classes)
     if (cfg.data.auto_canvas and not args.synth_size
             and args.dataset != "synthetic"):
-        from scda_tpu.data.pipeline import infer_canvas
+        from scda_tpu_torch.data.pipeline import infer_canvas
 
         canvas = infer_canvas(dataset.records, cfg.data)
         if canvas != tuple(cfg.data.image_size):

@@ -1,6 +1,6 @@
 """Dataset evaluation (port of ``scda_tpu/evals/detect.py``): run
-inference over a dataset through the shared ``DataLoader``, collect the
-fixed-size detections, score them with the shared VOC evaluator."""
+inference over a dataset through the ``DataLoader``, collect the
+fixed-size detections, score them with the VOC evaluator."""
 
 from __future__ import annotations
 
@@ -11,10 +11,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from scda_tpu.config import Config
-from scda_tpu.data.pipeline import DataLoader
-from scda_tpu.data.voc import Dataset
-from scda_tpu.evals.voc_eval import evaluate_detections
+from scda_tpu_torch.config import Config
+from scda_tpu_torch.data.pipeline import DataLoader
+from scda_tpu_torch.data.voc import Dataset
+from scda_tpu_torch.evals.voc_eval import evaluate_detections
 from scda_tpu_torch.models.detector import forward_inference
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
 

@@ -16,7 +16,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from scda_tpu.config import Config
+from scda_tpu_torch.config import Config
 from scda_tpu_torch.core import boxes as box_ops
 from scda_tpu_torch.models.faster_rcnn import (
     FasterRCNN, pool_rois, pool_rois_multiscale,

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scda_tpu.config import ModelConfig
+from scda_tpu_torch.config import ModelConfig
 from scda_tpu_torch.models.backbones.resnet import (
     FrozenBatchNorm2d, ResNetBackbone, ResNetC4Head,
 )

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scda_tpu.config import ProposalConfig
+from scda_tpu_torch.config import ProposalConfig
 from scda_tpu_torch.core import boxes as box_ops
 from scda_tpu_torch.ops.nms import batched_nms
 

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from scda_tpu.config import ROITargetConfig, RPNTargetConfig
+from scda_tpu_torch.config import ROITargetConfig, RPNTargetConfig
 from scda_tpu_torch.core import boxes as box_ops
 
 

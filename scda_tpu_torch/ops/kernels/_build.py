@@ -6,9 +6,9 @@ which ctypes loads.  The file name embeds a hash of
 the sources and flags (``_build/libscda_kernels-<hash>.so``), so a stale
 binary is never loaded after a source change; the build writes a temp
 file and renames it, so concurrent first uses race safely (the scheme of
-``scda_tpu/native/__init__.py``).  ``_build/`` is git-ignored.
+``scda_tpu_torch/native/__init__.py``).  ``_build/`` is git-ignored.
 
-A failed build raises: unlike ``scda_tpu.native`` there is no fallback,
+A failed build raises: unlike ``scda_tpu_torch.native`` there is no fallback,
 because a CUDA tensor has no other path.  ``torch.utils.cpp_extension``
 is not used: a source that includes PyTorch's headers takes minutes to
 compile, these take seconds.

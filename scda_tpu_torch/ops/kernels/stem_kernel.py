@@ -5,8 +5,10 @@ conv1_1 + relu + conv1_2 + relu + 2x2 max-pool, 3 -> 64 -> 64 channels,
 NHWC.  The kernel, ``csrc/vgg_stem.cu``, keeps conv1_2's weights and a
 haloed y1 tile in shared memory, pools in registers and writes only the
 pooled output, so the two full-resolution 64-channel activations never
-reach device memory.  On the H100 it is bound by conv1_2's 19.3 GFMA (at
-512x1024) on the CUDA cores; a tensor-core version is later work.
+reach device memory.  In bf16 conv1_2 (38.7 GFLOP at 512x1024) is an
+implicit GEMM on the tensor cores (``wgmma`` with A gathered from the y1
+tile by ``ldmatrix``) and conv1_1 stays on the CUDA cores so that y1
+equals the twin's bit for bit; f32 runs wholly on the CUDA cores.
 
 Numerics follow the Pallas kernel: inputs and weights in the compute
 dtype, f32 accumulation, biases added in f32, y1 rounded to the compute

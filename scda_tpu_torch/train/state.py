@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from scda_tpu.config import Config
+from scda_tpu_torch.config import Config
 from scda_tpu_torch.models.backbones.resnet import resnet_frozen_param_paths
 from scda_tpu_torch.models.backbones.vgg import vgg_frozen_param_paths
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN

@@ -17,7 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from scda_tpu.config import Config
+from scda_tpu_torch.config import Config
 from scda_tpu_torch.models.detector import StepGenerators, forward_train
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
 from scda_tpu_torch.train.state import TrainState

@@ -1,0 +1,241 @@
+"""Where the stem's (K3) and the bottleneck chain's (K4) time goes, on
+the card.  A measuring tool, not a check: ``chip_smoke.py`` holds the
+kernels against their twins; this prints times that explain them.
+
+    python -m scda_tpu_torch.utils.kernel_probe k3
+    python -m scda_tpu_torch.utils.kernel_probe k3-phases
+    python -m scda_tpu_torch.utils.kernel_probe k4
+    python -m scda_tpu_torch.utils.kernel_probe peaks
+
+``k3`` and ``k4`` time the kernels of this checkout at the shapes of the
+serving and training paths (512x1024 canvas): the wrapper, the launches
+alone, a CUDA-graph replay of them, and per-kernel device time from
+``torch.profiler``; each also prints the error against the plain twin.
+To compare two versions of a kernel, run the command from each checkout
+in turn inside one call on one card.
+
+``k3-phases`` compiles copies of ``csrc/vgg_stem.cu`` with one phase of
+the bf16 kernel taken out (conv1_1's sums, conv1_2's taps, both) or with
+one block per SM, and times the C call alone: the differences say what
+each phase costs and whether two blocks per SM overlap them.  The copies
+go to ``_build/probe/`` and are not used by the package.
+
+``peaks`` times cuBLAS on an 8192-cubed product in f32 (TF32 off) and in
+bf16: the rates a library reaches on this card, to read the kernels'
+rates against.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+
+STAGES = ((1, 128, 256, 64, 2, 0.3), (1, 64, 128, 128, 3, 0.3),
+          (1, 32, 64, 256, 22, 0.1))   # (B, H, W, F, blocks, expand damping)
+
+
+def time_ms(fn, repeats=30):
+    """Median CUDA-event time of ``fn()`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def graph_replay(fn):
+    """``fn`` captured in a CUDA graph; returns the replay function."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def kernel_times(fn, calls=5):
+    """(kernel name, launches per call, us per launch) by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count / calls, e.self_device_time_total / e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1] * r[2])
+
+
+def stem_inputs(gen, b, device):
+    x = (torch.randn((b, 512, 1024, 3), generator=gen) * 50).to(device)
+    k1 = (torch.randn((3, 3, 3, 64), generator=gen)
+          * (2 / 27) ** 0.5 / 64).to(device)
+    k2 = (torch.randn((3, 3, 64, 64), generator=gen)
+          * (2 / 576) ** 0.5).to(device)
+    b1 = (torch.randn(64, generator=gen) * 0.1).to(device)
+    b2 = (torch.randn(64, generator=gen) * 0.1).to(device)
+    return x, k1, b1, k2, b2
+
+
+def chain_inputs(gen, b, h, w, f, n, damp, device):
+    c = 4 * f
+
+    def r(*shape, std):
+        return (torch.randn(shape, generator=gen) * std).to(device)
+
+    x = torch.relu(torch.randn((b, h, w, c), generator=gen)).to(device)
+    return (x, r(n, c, f, std=(2.0 / c) ** 0.5), r(n, 1, f, std=0.05),
+            r(n, 9, f, f, std=(2.0 / (9 * f)) ** 0.5), r(n, 1, f, std=0.05),
+            r(n, f, c, std=damp * (2.0 / f) ** 0.5), r(n, 1, c, std=0.05))
+
+
+def probe_k3(device):
+    from scda_tpu_torch.ops.kernels import stem_kernel as sk
+
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    for b in (1, 8):
+        x, k1, b1, k2, b2 = stem_inputs(gen, b, device)
+        out = sk.vgg_stem_fused(x, k1, b1, k2, b2).float()
+        ref = sk.vgg_stem_plain(x, k1, b1, k2, b2).float()
+        cast = (x.to(bf), k1.to(bf), b1, k2.to(bf), b2)   # no cast kernels
+        rows = kernel_times(lambda: sk.vgg_stem_fused(*cast))
+        print(f"k3 B={b}: max abs err {float((out - ref).abs().max()):.4g} "
+              f"(max |twin| {float(ref.abs().max()):.4g}), wrapper "
+              f"{time_ms(lambda: sk.vgg_stem_fused(x, k1, b1, k2, b2)):.4f} ms, "
+              f"on bf16 inputs {time_ms(lambda: sk.vgg_stem_fused(*cast)):.4f} "
+              f"ms, kernel alone {rows[0][2] / 1e3:.4f} ms", flush=True)
+
+
+def probe_k4(device):
+    from scda_tpu_torch.ops.kernels import bottleneck_kernel as bk
+
+    gen = torch.Generator().manual_seed(0)
+    for b, h, w, f, n, damp in STAGES + ((8, 32, 64, 256, 22, 0.1),):
+        args = chain_inputs(gen, b, h, w, f, n, damp, device)
+        ref = bk.bottleneck_chain_plain(*args).float()
+        launch = bk.chain_launcher(*args)
+        err = float((launch().float() - ref).abs().max())
+        print(f"k4 x=({b},{h},{w},{4 * f}) F={f} N={n}: max abs err {err:.4g} "
+              f"(max |twin| {float(ref.abs().max()):.4g}), wrapper "
+              f"{time_ms(lambda: bk.bottleneck_chain(*args)):.4f} ms, launches "
+              f"alone {time_ms(launch):.4f} ms, from a graph "
+              f"{time_ms(graph_replay(launch)):.4f} ms", flush=True)
+        for name, per_call, us in kernel_times(launch)[:4]:
+            print(f"    {name[:64]:64s} x{per_call:5.1f}  {us:7.2f} us")
+
+
+def probe_k3_phases(device):
+    from scda_tpu_torch.ops.kernels import _build
+
+    with open(os.path.join(_build.CSRC, "vgg_stem.cu")) as f:
+        src = f.read()
+
+    def sub(text, old, new):
+        if text.count(old) != 1:
+            raise RuntimeError(f"vgg_stem.cu no longer has exactly one "
+                               f"{old!r}: bring kernel_probe.py up to date")
+        return text.replace(old, new)
+
+    src = sub(src, "      if (inside) {", "      if (inside && !PROBE_SKIP11) {")
+    src = sub(src, "for (int tap = 0; tap < 9; ++tap) {",
+              "for (int tap = 0; tap < PROBE_TAPS; ++tap) {")
+    src = sub(src, "constexpr int kSmemBytes = kB2Off + kC * 4 + 1024;",
+              "constexpr int kSmemBytes = kB2Off + kC * 4 + 1024 + PROBE_PAD;")
+    out_dir = os.path.join(_build.BUILD_DIR, "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    cu = os.path.join(out_dir, "vgg_stem_probe.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    variants = {"as shipped": (0, 9, 0), "no conv1_1": (1, 9, 0),
+                "no conv1_2": (0, 0, 0), "neither": (1, 0, 0),
+                "one block per SM": (0, 9, 8192)}
+    procs = {}
+    for name, (skip11, taps, pad) in variants.items():
+        so = os.path.join(out_dir, name.replace(" ", "_") + ".so")
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+             f"-DPROBE_SKIP11={skip11}", f"-DPROBE_TAPS={taps}",
+             f"-DPROBE_PAD={pad}", "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the {name!r} variant:\n{log}")
+        libs[name] = ctypes.CDLL(so)
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    for b in (1, 8):
+        x, k1, b1, k2, b2 = stem_inputs(gen, b, device)
+        x, w1, w2 = x.to(bf), k1.reshape(27, 64).to(bf), k2.reshape(576, 64).to(bf)
+        out = torch.empty((b, 256, 512, 64), device=device, dtype=bf)
+        for name, lib in libs.items():
+            fn = lib.scda_vgg_stem_bf16
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+
+            def call():
+                rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, 512,
+                        1024, _build.stream_ptr(device))
+                if rc:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+
+            print(f"k3-phases B={b} {name:18s} {time_ms(call):.4f} ms",
+                  flush=True)
+
+
+def probe_peaks(device):
+    n = 8192
+    a = torch.randn((n, n), device=device)
+    b = torch.randn((n, n), device=device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, x, y in (("f32 (TF32 off)", a, b),
+                       ("bf16", a.bfloat16(), b.bfloat16())):
+        ms = time_ms(lambda: x @ y, repeats=10)
+        print(f"peaks cuBLAS {n}^3 {name}: {ms:.3f} ms, "
+              f"{2 * n ** 3 / ms / 1e9:.1f} TFLOP/s", flush=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("what", choices=("k3", "k3-phases", "k4", "peaks"))
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_probe: needs a CUDA device", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    with torch.no_grad():
+        {"k3": probe_k3, "k3-phases": probe_k3_phases,
+         "k4": probe_k4, "peaks": probe_peaks}[args.what](device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

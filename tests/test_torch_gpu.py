@@ -106,6 +106,33 @@ def test_stem_kernel_bf16_y1_exact(cuda):
     assert bool(((out - ref).abs() <= ulp).all())
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 2, 2), (2, 18, 10), (1, 34, 50), (3, 22, 70), (1, 64, 128),
+    (8, 40, 56), (8, 512, 1024),
+])
+def test_stem_kernel_matches_twin_bf16(cuda, shape):
+    """bf16, where conv1_2 runs on the tensor cores: ragged even sizes
+    (tiles cut at the right and bottom edges), a batch of 8, and the
+    training path's shape.  conv1_2's f32 sums are taken in another order
+    than the twin's, so a rounding may flip: within 2 bf16 ulps."""
+    b, h, w = shape
+    rng = np.random.RandomState(h * w + b)
+    x = torch.from_numpy(rng.randn(b, h, w, 3).astype(np.float32) * 50).to(cuda)
+    k1 = torch.from_numpy(rng.randn(3, 3, 3, 64).astype(np.float32)
+                          * (2 / 27) ** 0.5 / 64).to(cuda)
+    b1 = torch.from_numpy(rng.randn(64).astype(np.float32) * 0.1).to(cuda)
+    k2 = torch.from_numpy(rng.randn(3, 3, 64, 64).astype(np.float32)
+                          * (2 / 576) ** 0.5).to(cuda)
+    b2 = torch.from_numpy(rng.randn(64).astype(np.float32) * 0.1).to(cuda)
+    before = stem_kernel.vgg_stem_fused.launches
+    out = stem_kernel.vgg_stem_fused(x, k1, b1, k2, b2)
+    assert stem_kernel.vgg_stem_fused.launches == before + 1
+    assert out.shape == (b, h // 2, w // 2, 64) and out.dtype == torch.bfloat16
+    ref = stem_kernel.vgg_stem_plain(x, k1, b1, k2, b2).float()
+    assert ref.abs().max() > 1
+    assert bool(((out.float() - ref).abs() <= 2 * _bf16_ulp(ref)).all())
+
+
 def _chain_weights(g, n, c, f, device, damp=1.0):
     """Folded-weight stacks at He scale; ``damp`` scales the expand."""
     def r(*shape, std):
@@ -140,6 +167,30 @@ def test_bottleneck_chain_kernel_matches_twin(cuda, dtype, b, h, w, f, n):
         assert err <= 2.0 ** -6 * ref.float().abs().max().item()
 
 
+@pytest.mark.parametrize("b,h,w,f,n,damp", [
+    (1, 128, 256, 64, 2, 0.3), (1, 64, 128, 128, 3, 0.3),
+    (1, 32, 64, 256, 22, 0.1),      # the ResNet-101 stages at 512x1024
+    (1, 31, 33, 256, 2, 0.3),       # M = 1023: a cut tile under a 128-wide expand
+    (1, 75, 101, 128, 1, 1.0),      # M = 7575: a cut tile, 128-wide throughout
+])
+def test_bottleneck_chain_kernel_bf16_at_the_path_shapes(cuda, b, h, w, f, n,
+                                                         damp):
+    """bf16 on the tensor cores at each stage shape of the ResNet-101
+    path (the expand damped as a trained net's is, so that 22 blocks stay
+    in range), and with M not a multiple of the 64-row tile under both
+    tile widths.  Max error <= 2^-5 * max|twin| for a chain (a one-ulp
+    flip propagates through the blocks), 2^-6 for one undamped block."""
+    c = 4 * f
+    g = torch.Generator().manual_seed(h + w + f + n)
+    x = torch.relu(torch.randn((b, h, w, c), generator=g)).to(cuda)
+    ws = _chain_weights(g, n, c, f, cuda, damp)
+    out = bottleneck_kernel.bottleneck_chain(x, *ws, dtype=torch.bfloat16)
+    ref = bottleneck_kernel.bottleneck_chain_plain(x, *ws, dtype=torch.bfloat16)
+    assert bool(torch.isfinite(out).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** (-6 if n == 1 else -5) * ref.float().abs().max().item()
+
+
 def test_bottleneck_chain_kernel_input_untouched(cuda):
     """The kernel updates a copy of the residual stream, never x."""
     g = torch.Generator().manual_seed(0)
@@ -157,7 +208,7 @@ def test_slice_on_card_matches_cpu(cuda, backbone, hw):
     """Batch of 2 through the whole f32 slice: card (kernels) against
     CPU (plain twins), same weights; detections match by class, IoU >=
     0.99 and |score| <= 1e-3 for at least 90% of them."""
-    from scda_tpu.config import get_config, replace_path
+    from scda_tpu_torch.config import get_config, replace_path
     from scda_tpu_torch.evals.detect import detection_match_rate
     from scda_tpu_torch.models.detector import forward_inference
     from scda_tpu_torch.models.faster_rcnn import build_model, init_weights

@@ -444,9 +444,9 @@ def test_match_rate_is_a_maximum_matching():
 
 
 def test_evaluate_model_through_shared_voc_eval(tmp_path):
-    """evaluate_model: the shared DataLoader, the port's inference, the
-    shared VOC evaluator; bf16 weights when the config asks for them."""
-    from scda_tpu.data.synthetic import make_memory_dataset
+    """evaluate_model: the port's DataLoader, inference and VOC
+    evaluator; bf16 weights when the config asks for them."""
+    from scda_tpu_torch.data.synthetic import make_memory_dataset
     from scda_tpu_torch.evals.detect import evaluate_model
 
     cfg = replace_path(tiny_config(), "test.bf16_weights", True)
@@ -467,13 +467,47 @@ def test_cli_refuses_cuda_without_a_card(monkeypatch):
     assert test_net.main(["--net", "tiny", "--device", "cuda"]) == 2
 
 
-def test_port_imports_no_jax():
-    """Importing the port and running its CPU slice loads neither jax nor
-    flax (a fresh interpreter: this one has them loaded)."""
+# The tiny config of tests/helpers.py, built from the port's own config
+# classes: helpers.py imports the JAX package's.
+TINY_CONFIG_CODE = (
+    "from scda_tpu_torch.config import (\n"
+    "    AnchorConfig, Config, DataConfig, ModelConfig, ProposalConfig,\n"
+    "    ROITargetConfig, RPNTargetConfig, TestConfig, TrainConfig,\n"
+    "    replace_path)\n"
+    "def tiny_config():\n"
+    "    return Config(\n"
+    "        model=ModelConfig(backbone='tiny', num_classes=5,\n"
+    "                          compute_dtype='float32', rpn_channels=64),\n"
+    "        train=TrainConfig(\n"
+    "            batch_size=2,\n"
+    "            proposal=ProposalConfig(pre_nms_top_n=256, post_nms_top_n=64,\n"
+    "                                    nms_thresh=0.7, min_size=4.0),\n"
+    "            rpn_target=RPNTargetConfig(batch_size=64),\n"
+    "            roi_target=ROITargetConfig(batch_size=32)),\n"
+    "        test=TestConfig(\n"
+    "            proposal=ProposalConfig(pre_nms_top_n=128, post_nms_top_n=32,\n"
+    "                                    nms_thresh=0.7, min_size=4.0),\n"
+    "            max_dets_per_class=8, max_per_image=16),\n"
+    "        data=DataConfig(scale=128, max_size=224, image_size=(128, 192),\n"
+    "                        max_gt_boxes=8),\n"
+    "        anchors=AnchorConfig(scales=(2.0, 4.0, 8.0)))\n"
+)
+# No module of JAX, flax or the JAX package (top-level name exactly) loaded.
+NO_JAX_CODE = (
+    "bad = sorted(k for k in sys.modules\n"
+    "             if k.split('.')[0] in ('jax', 'flax', 'scda_tpu'))\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+
+
+def test_port_imports_no_jax(tmp_path):
+    """Importing the port, running its CPU slice and the evaluation CLI
+    on ``tiny`` loads neither jax nor flax nor anything of the JAX
+    package (a fresh interpreter: this one has them loaded)."""
     code = (
         "import sys, torch\n"
-        "sys.path.insert(0, 'tests')\n"
-        "from helpers import tiny_config\n"
+        + TINY_CONFIG_CODE +
         "import scda_tpu_torch, scda_tpu_torch.bridge, scda_tpu_torch.cli.test_net\n"
         "import scda_tpu_torch.evals.detect\n"
         "from scda_tpu_torch.models.faster_rcnn import build_model\n"
@@ -483,7 +517,6 @@ def test_port_imports_no_jax():
         "d = forward_inference(m, torch.randn(1, 128, 192, 3) * 30,\n"
         "                      torch.tensor([[128.0, 192.0, 1.0]]), cfg)\n"
         "assert d.boxes.shape == (1, 16, 4)\n"
-        "from scda_tpu.config import replace_path\n"
         "mc = replace_path(cfg.model, 'backbone', 'resnet50')\n"
         "mc = replace_path(mc, 'multiscale_roi', True)\n"
         "cfg = replace_path(cfg, 'model', mc)\n"
@@ -491,11 +524,37 @@ def test_port_imports_no_jax():
         "d = forward_inference(m, torch.randn(1, 64, 96, 3) * 30,\n"
         "                      torch.tensor([[64.0, 96.0, 1.0]]), cfg)\n"
         "assert bool(torch.isfinite(d.boxes).all())\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
+        "rc = scda_tpu_torch.cli.test_net.main([\n"
+        "    '--net', 'tiny', '--device', 'cpu', '--synth_images', '2',\n"
+        "    '--synth_size', '128', '192', '--set',\n"
+        "    'test.proposal.pre_nms_top_n=200',\n"
+        "    'test.proposal.post_nms_top_n=50', 'anchors.scales=2,4,8'])\n"
+        "assert rc == 0, rc\n"
+        + NO_JAX_CODE
     )
     env = {k: v for k, v in os.environ.items() if k != "SCDA_PLATFORM"}
+    env["TMPDIR"] = str(tmp_path)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+
+
+def test_port_sources_name_no_jax_package():
+    """No file of the port, and not ``chip_smoke.py``, imports the JAX
+    package: no ``import scda_tpu`` or ``from scda_tpu`` followed by a
+    dot, a space or the end of the line."""
+    import re
+
+    pattern = re.compile(r"\b(?:import|from)\s+scda_tpu(?:[.\s]|$)", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "scda_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files
+                  if f.endswith((".py", ".cu", ".cuh", ".cc"))]
+    assert len(paths) > 30
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if pattern.search(line):
+                    bad.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
+    assert not bad, bad

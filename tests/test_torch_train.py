@@ -451,29 +451,56 @@ def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-def test_train_path_imports_no_jax():
-    """The train modules and CLI, and one tiny train step, load neither
-    jax nor flax (a fresh interpreter: this one has them loaded)."""
+def test_train_path_imports_no_jax(tmp_path):
+    """The train modules, one tiny train step, and both CLIs' ``main`` on
+    ``tiny`` load neither jax nor flax nor anything of the JAX package (a
+    fresh interpreter: this one has them loaded)."""
+    from test_torch_slice import NO_JAX_CODE, TINY_CONFIG_CODE
+
+    save = str(tmp_path / "models")
     code = (
-        "import sys, torch\n"
-        "sys.path.insert(0, 'tests')\n"
+        "import os, sys, torch\n"
         "import numpy as np\n"
-        "from helpers import tiny_config, synthetic_batch\n"
+        + TINY_CONFIG_CODE +
         "import scda_tpu_torch.cli.trainval, scda_tpu_torch.train.checkpoint\n"
+        "import scda_tpu_torch.cli.test_net\n"
         "from scda_tpu_torch.models.faster_rcnn import build_model\n"
         "from scda_tpu_torch.train.state import create_train_state\n"
         "from scda_tpu_torch.train.steps import make_train_step\n"
         "cfg = tiny_config()\n"
         "m = build_model(cfg.model, cfg.anchors.num_anchors)\n"
         "s = create_train_state(cfg, m)\n"
-        "b = [torch.from_numpy(x) for x in synthetic_batch(np.random.RandomState(0), cfg)]\n"
+        "rng = np.random.RandomState(0)\n"
+        "gt = np.zeros((2, 8, 5), np.float32)\n"
+        "gt[:, 0] = [20.0, 30.0, 90.0, 100.0, 2.0]\n"
+        "b = [torch.from_numpy(x) for x in (\n"
+        "    rng.randn(2, 128, 192, 3).astype(np.float32) * 30,\n"
+        "    np.tile(np.array([[128, 192, 1.0]], np.float32), (2, 1)),\n"
+        "    gt, np.ones(2, np.int32))]\n"
         "s, met = make_train_step(m, cfg)(s, *b)\n"
         "assert bool(torch.isfinite(met['loss']))\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
+        f"save = {save!r}\n"
+        "rc = scda_tpu_torch.cli.trainval.main([\n"
+        "    '--net', 'tiny', '--device', 'cpu', '--dataset', 'synthetic',\n"
+        "    '--steps', '1', '--bs', '2', '--synth_images', '4',\n"
+        "    '--synth_size', '128', '192', '--save_dir', save,\n"
+        "    '--checkpoint_interval', '1', '--set',\n"
+        "    'train.proposal.pre_nms_top_n=200',\n"
+        "    'train.proposal.post_nms_top_n=50',\n"
+        "    'train.rpn_target.batch_size=64',\n"
+        "    'train.roi_target.batch_size=32', 'anchors.scales=2,4,8'])\n"
+        "assert rc == 0, rc\n"
+        "rc = scda_tpu_torch.cli.test_net.main([\n"
+        "    '--net', 'tiny', '--device', 'cpu', '--synth_images', '2',\n"
+        "    '--synth_size', '128', '192', '--torch_checkpoint',\n"
+        "    os.path.join(save, 'tiny', 'synthetic', 'ckpt_00000001.pth'),\n"
+        "    '--set', 'test.proposal.pre_nms_top_n=200',\n"
+        "    'test.proposal.post_nms_top_n=50', 'anchors.scales=2,4,8'])\n"
+        "assert rc == 0, rc\n"
+        + NO_JAX_CODE
     )
     env = {k: v for k, v in os.environ.items() if k != "SCDA_PLATFORM"}
+    env["TMPDIR"] = str(tmp_path)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr

@@ -35,7 +35,9 @@ non-zero:
      losses, peak memory, launches per step, the total loss of a fixed
      batch before and after, and a profiler pass over three steps; K1
      and K3 at the training shape and the K2 backward against their
-     twins on the inputs a step gives them; then
+     twins on the inputs a step gives them (K1 with its per-class call's
+     time and bound and, at every shape, its mask pass and its scan
+     apart, from a profiler pass); then
      one f32 step's gradients with the kernels against the same step
      with every wrapper swapped for its twin (also with the twins'
      outputs perturbed by rounding-sized noise, which sets the bound),
@@ -516,6 +518,59 @@ class Port:
         require(all(r["cpu_dets"] >= 1 for r in rates),
                 f"{path}: the CPU slice found no detections to compare")
 
+    def device_kernel_ms(self, fn, names, calls=5):
+        """Device time in ms per launch of the kernels whose name holds
+        each of ``names``, from a ``torch.profiler`` pass over ``calls``
+        calls of ``fn()``: what the launches of one wrapper take apart
+        (K1: the mask pass and the scan, one launch each per call)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def one_pass():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            out = {}
+            for name in names:
+                hits = [e for e in rows if name in e.key]
+                launches = sum(e.count for e in hits)
+                # Per launch seen, not per call made: the tracer can
+                # start late and miss the first launches of a pass.
+                out[name] = (sum(e.self_device_time_total for e in hits)
+                             / 1e3 / launches) if launches else 0.0
+            return out
+
+        # A pass now and then records no kernel at all; three are tried.
+        # This is a measurement, not a check (as ``profile_pass``): if
+        # the tracer never delivers, the times are null and the line
+        # says so.
+        for _ in range(3):
+            out = one_pass()
+            if all(ms > 0 for ms in out.values()):
+                return out
+        emit({"phase": "profile", "error": "three profiler passes saw no "
+              f"kernel named {[n for n, ms in out.items() if not ms]}"})
+        return {name: None for name in names}
+
+    def nms_times(self, sb, sv, kw, plain_repeats):
+        """K1 on one recorded call: the wrapper's time, the twin's, the
+        bound, and the mask pass and the scan apart."""
+        torch = self.torch
+        run = lambda: self.nk.nms_sorted(sb, sv, **kw)
+        parts = self.device_kernel_ms(run, ("nms_mask", "nms_scan"))
+        return {"ms": time_ms(torch, run, 20),
+                "plain_ms": time_ms(torch, lambda: self.nk.nms_sorted_plain(
+                    sb, sv, **kw), plain_repeats),
+                **nms_bound(torch, sb, sv,
+                            self.nk.nms_sorted_plain(sb, sv, **kw)),
+                "mask_ms": parts["nms_mask"], "scan_ms": parts["nms_scan"]}
+
     # ---- kernel checks against the twins --------------------------------
 
     def check_nms(self, calls, labels, adversarial=False):
@@ -543,9 +598,17 @@ class Port:
             p_keep = self.nk.nms_sorted_plain(sb, sv, **kw)
             diff = int((k_keep != p_keep).sum().item())
             mismatched += diff
+            # The 64-box words the scan walks in its longest row: up to
+            # the ``max_output``-th keep, or all where the cap is not met.
+            n = sv.shape[-1]
+            words = (n + 63) // 64
+            last = (k_keep * torch.arange(1, n + 1, device=device)).amax(-1)
+            walked = torch.where(k_keep.sum(-1) >= kw["max_output"],
+                                 (last + 63) // 64, words)
             results.append({"case": label, "shape": list(sv.shape),
                             "kept": int(k_keep.sum().item()),
-                            "mismatched": diff})
+                            "words_walked": int(walked.max().item()),
+                            "words": words, "mismatched": diff})
         require(mismatched == 0, f"K1 keep masks differ from the twin: {results}")
         return mismatched, results
 
@@ -992,13 +1055,17 @@ def vgg16_path(port, device, frames):
                                           ("proposals", "per_class"),
                                           adversarial=True)
     (sb, sv), kw = rec_nms.calls[0][0][:2], rec_nms.calls[0][1]
+    (cb, cv), ckw = rec_nms.calls[1][0][:2], rec_nms.calls[1][1]
     summary["nms"] = {
         "max_abs_err": float(nms_err),
-        "ms": time_ms(torch, lambda: port.nk.nms_sorted(sb, sv, **kw), 20),
-        "plain_ms": time_ms(torch, lambda: port.nk.nms_sorted_plain(
-            sb, sv, **kw), 3),
-        **nms_bound(torch, sb, sv, port.nk.nms_sorted_plain(sb, sv, **kw)),
+        "shape": list(sv.shape), "max_output": kw["max_output"],
+        **port.nms_times(sb, sv, kw, 3),
         "library_ms": None, "library_reason": NO_LIBRARY,
+        # The second call of a served image: per-class NMS.
+        "per_class_shape": list(cv.shape),
+        "per_class_max_output": ckw["max_output"],
+        **{f"per_class_{k}": v
+           for k, v in port.nms_times(cb, cv, ckw, 3).items()},
     }
     emit({"phase": "kernel", "path": "vgg16", "kernel": "nms",
           "cases": nms_results, **summary["nms"]})
@@ -1197,11 +1264,7 @@ def train_kernel_checks(port, records, path):
     (sb, sv), kw = records["nms"][0][0][:2], records["nms"][0][1]
     summary["nms"] = {
         "train_shape": list(sv.shape), "train_max_output": kw["max_output"],
-        "train_ms": time_ms(torch, lambda: port.nk.nms_sorted(sb, sv, **kw), 20),
-        "train_plain_ms": time_ms(torch, lambda: port.nk.nms_sorted_plain(
-            sb, sv, **kw), 2),
-        **{f"train_{k}": v for k, v in nms_bound(
-            torch, sb, sv, port.nk.nms_sorted_plain(sb, sv, **kw)).items()}}
+        **{f"train_{k}": v for k, v in port.nms_times(sb, sv, kw, 2).items()}}
     emit({"phase": "kernel", "path": path, "kernel": "nms",
           "cases": nms_results, "max_abs_err": float(nms_err),
           **summary["nms"]})

@@ -3,12 +3,24 @@
 Replaces ``scda_tpu/ops/pallas/nms_kernel.py:nms_sorted_pallas`` (used by
 both NMS call sites of the inference path: proposals, (B, 6000) boxes at
 IoU 0.7 down to 300; per-class test NMS, (B*8, 300) boxes at 0.3 down
-to 100).  The kernel is ``csrc/nms.cu``: a parallel pass builds the
-64-bit suppression bitmask of each row, then one warp per row scans it
-greedily on the device and stops at ``max_output`` keeps.  On the H100
-the mask pass is arithmetic over N^2/2 pairs and the scan a serial,
-latency-bound chain of at most ``max_output`` steps; neither syncs with
-the host.
+to 100; and by the training proposals, (B, 12000) down to 2000).  The
+kernel is ``csrc/nms.cu``, two launches, neither syncing with the host:
+
+* a parallel pass builds the 64-bit suppression bitmask of each row
+  (bit k of ``mask[i][w]``: box i suppresses box 64 w + k).  It is
+  arithmetic over N^2/2 pairs, so the correctly rounded division of the
+  test below decides only the pairs within 2^-20 of the threshold; a
+  division-free screen settles the rest, and 64-box blocks with no valid
+  box are skipped;
+* one 512-thread block per row scans it greedily, one step per 64-box
+  word: the word's diagonal and the next two columns are prefetched into
+  shared memory (their addresses depend on no data), one warp resolves
+  the word's keeps from shared memory, then all kept boxes OR their rows
+  into ``removed`` at once, with the loads of the far columns started
+  three steps before they are needed.  It stops at ``max_output`` keeps.
+
+On the H100 the mask pass is bound by arithmetic and the scan by a serial
+chain of one shared-memory round trip per word walked.
 
 The keep mask equals the plain twin's bit for bit: both follow
 ``_iou_matrix``'s operation order (the kernel with non-contracting _rn
@@ -23,8 +35,9 @@ import torch
 
 from scda_tpu_torch.ops.kernels import _build
 
-# The scan keeps ceil(N/64) 64-bit words per row in shared memory.
-_MAX_BOXES = 48 * 1024 // 8 * 64
+# The scan keeps three 64-bit words per 64 boxes of a row in static shared
+# memory: ``kMaxWords`` = 1024 words in ``csrc/nms.cu``.
+_MAX_BOXES = 1024 * 64
 
 
 def _iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,6 +108,9 @@ def nms_sorted(sboxes: torch.Tensor, svalid: torch.Tensor, *,
         raise ValueError("nms_sorted: inputs must be contiguous")
     if n > _MAX_BOXES:
         raise ValueError(f"nms_sorted: at most {_MAX_BOXES} boxes a row")
+    if sboxes.data_ptr() % 16:
+        raise ValueError("nms_sorted: the boxes must start on a 16-byte "
+                         "boundary (the kernel loads a box as one float4)")
 
     words = (n + 63) // 64
     mask = torch.empty((b, n, words), dtype=torch.int64, device=sboxes.device)

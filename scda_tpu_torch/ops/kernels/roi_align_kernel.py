@@ -8,19 +8,29 @@ Replaces ``scda_tpu/ops/pallas/roi_align_kernel.py:roi_align_contract``:
 The axis weights (``scda_tpu_torch.ops.roi_ops``) carry every sampling
 mode, so one kernel serves align, adaptive and align_legacy.  The kernel,
 ``csrc/roi_align.cu``, exploits what the TPU's dense matmuls could not:
-each weight row has at most 2*S nonzero taps.  One block per (b, r, p)
-compacts those taps in shared memory and accumulates along C with
-coalesced reads of ``feat[b, h, w, :]``; on the H100 it is bound by those
-reads and the f32 output write.  Dense weights stay exact.
+each weight row has at most 2*S nonzero taps.  One block per (b, r) and
+channel slice compacts the taps of the roi's 2*P rows once, in shared
+memory; a thread then owns 16 bytes of channels (8 bf16 or 4 f32) of one
+bin and, where no row of the roi has more than 4 taps, sends its up to
+16 tap loads back to back from unrolled loops.  A roi with a longer row
+(adaptive sampling, dense weights) takes general loops over the same
+lists and stays exact; a channel count that is no multiple of the vector
+runs at one channel per thread.  On the H100 the forward is bound by the
+latency of those loads from L2, not by bytes.
 
 The backward is JAX's ``_contract_bwd`` (two einsums there, no Pallas
 call): ``dfeat = sum_{r,p,q} wy * wx * g``, in f32, cast once to the
-features' dtype.  Its kernel (same file) scatters with ``atomicAdd``
-from the same compacted taps, so the order of the f32 adds, and the
-rounding of ``dfeat``, varies from run to run on the card: it is held to
-its twin with a tolerance, never bit for bit.  The weights get no
-gradient (zero cotangents in JAX: they come from stop-gradient boxes);
-asking for one raises.
+features' dtype.  Its kernel (same file) adds into an f32 ``dfeat`` with
+atomics, whose bytes through L2 are what bounds it, so it sends few: a
+block per (b, r) and 64-channel slice stages its slice of ``g`` in shared
+memory, lists the pixels the roi touches with the bins that reach each,
+sums a pixel's contributions in registers and adds them once, four
+channels per ``atomicAdd`` on ``float4``.  The order of the f32 adds
+across rois, and so the rounding of ``dfeat``,
+varies from run to run on the card: it is held to its twin with a
+tolerance, never bit for bit.  The weights get no gradient (zero
+cotangents in JAX: they come from stop-gradient boxes); asking for one
+raises.
 
 :func:`roi_align_contract` is the differentiable entry point.  The ctypes
 wrappers below it refuse inputs that require grad while grad mode is on,

@@ -1,18 +1,29 @@
-"""Where the stem's (K3) and the bottleneck chain's (K4) time goes, on
-the card.  A measuring tool, not a check: ``chip_smoke.py`` holds the
-kernels against their twins; this prints times that explain them.
+"""Where each kernel's time goes, on the card.  A measuring tool, not a
+check: ``chip_smoke.py`` holds the kernels against their twins; this
+prints times that explain them.
 
+    python -m scda_tpu_torch.utils.kernel_probe k1
+    python -m scda_tpu_torch.utils.kernel_probe k2
     python -m scda_tpu_torch.utils.kernel_probe k3
     python -m scda_tpu_torch.utils.kernel_probe k3-phases
     python -m scda_tpu_torch.utils.kernel_probe k4
     python -m scda_tpu_torch.utils.kernel_probe peaks
 
-``k3`` and ``k4`` time the kernels of this checkout at the shapes of the
-serving and training paths (512x1024 canvas): the wrapper, the launches
-alone, a CUDA-graph replay of them, and per-kernel device time from
-``torch.profiler``; each also prints the error against the plain twin.
+``k1`` to ``k4`` time the kernels of this checkout at the shapes of the
+serving and training paths (512x1024 canvas) on inputs made from a seed:
+the wrapper, the launches alone, a CUDA-graph replay of them, and
+per-kernel device time from ``torch.profiler`` (K1: the mask pass
+against the scan); each also prints the error against the plain twin.
 To compare two versions of a kernel, run the command from each checkout
-in turn inside one call on one card.
+in turn inside one call on one card (the C entry points of K1 and K2
+kept their signatures, so this file also runs from an older checkout).
+
+``k1`` draws proposal-like boxes two ways: ``spread`` over the canvas
+(few suppressions: the scan reaches ``max_output`` keeps early in the
+row) and ``clustered`` around a few centres (most boxes suppressed: the
+scan walks the whole row).  ``k2`` takes its axis weights from
+``roi_align_axis_weights`` on seeded rois, two samples per bin edge as
+on the paths, forward in bf16 and backward on an f32 cotangent.
 
 ``k3-phases`` compiles copies of ``csrc/vgg_stem.cu`` with one phase of
 the bf16 kernel taken out (conv1_1's sums, conv1_2's taps, both) or with
@@ -108,6 +119,123 @@ def chain_inputs(gen, b, h, w, f, n, damp, device):
     return (x, r(n, c, f, std=(2.0 / c) ** 0.5), r(n, 1, f, std=0.05),
             r(n, 9, f, f, std=(2.0 / (9 * f)) ** 0.5), r(n, 1, f, std=0.05),
             r(n, f, c, std=damp * (2.0 / f) ** 0.5), r(n, 1, c, std=0.05))
+
+
+def proposal_boxes(gen, b, n, clustered):
+    """(b, n, 4) boxes on the canvas in a random (score) order: sides
+    log-uniform in 32..512 px, centres uniform (``spread``) or jittered
+    by a few pixels around 40 centres per row (``clustered``)."""
+    sides = 32.0 * 16.0 ** torch.rand((b, n, 2), generator=gen)
+    if clustered:
+        centres = torch.rand((b, 40, 2), generator=gen)
+        pick = torch.randint(0, 40, (b, n), generator=gen)
+        c = torch.gather(centres, 1, pick[..., None].expand(b, n, 2))
+        c = c + 0.004 * torch.randn((b, n, 2), generator=gen)
+        sides = 96.0 * (1 + 0.1 * torch.rand((b, n, 2), generator=gen))
+    else:
+        c = torch.rand((b, n, 2), generator=gen)
+    c = c * torch.tensor([1024.0, 512.0])
+    lo = torch.maximum(c - sides / 2, torch.zeros(2))
+    hi = torch.minimum(c + sides / 2, torch.tensor([1023.0, 511.0]))
+    return torch.cat([lo, torch.maximum(hi, lo)], -1).contiguous()
+
+
+def probe_k1(device):
+    from scda_tpu_torch.ops.kernels import _build
+    from scda_tpu_torch.ops.kernels import nms_kernel as nk
+
+    fn = _build.function("scda_nms_keep", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p])
+    gen = torch.Generator().manual_seed(0)
+    cases = [("proposals", 1, 6000, 0.7, 300, False),
+             ("proposals", 1, 6000, 0.7, 300, True),
+             ("per-class", 8, 300, 0.3, 100, False),
+             ("train", 8, 12000, 0.7, 2000, False),
+             ("train", 8, 12000, 0.7, 2000, True)]
+    for label, b, n, thr, max_out, clustered in cases:
+        boxes = proposal_boxes(gen, b, n, clustered).to(device)
+        valid = torch.ones((b, n), dtype=torch.bool, device=device)
+        if label == "per-class":    # a score threshold leaves a sorted prefix
+            live = torch.randint(20, 120, (b, 1), generator=gen).to(device)
+            valid = torch.arange(n, device=device)[None] < live
+        kw = dict(iou_threshold=thr, max_output=max_out)
+        keep = nk.nms_sorted(boxes, valid, **kw)
+        wrong = int((keep != nk.nms_sorted_plain(boxes, valid, **kw)).sum())
+        kept = keep.sum(1)
+        last = (keep * torch.arange(1, n + 1, device=device)).max(1).values
+        words = (n + 63) // 64
+        mask = torch.empty((b, n, words), dtype=torch.int64, device=device)
+        out = torch.empty((b, n), dtype=torch.bool, device=device)
+
+        def launch():
+            rc = fn(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+                    out.data_ptr(), b, n, thr, max_out,
+                    _build.stream_ptr(device))
+            if rc:
+                raise RuntimeError(f"scda_nms_keep: CUDA error {rc}")
+
+        print(f"k1 {label} ({b},{n})->{max_out} at {thr} "
+              f"{'clustered' if clustered else 'spread'}: {wrong} bits off "
+              f"the twin, kept {kept.min().item()}-{kept.max().item()}, words "
+              f"walked {((last + 63) // 64).max().item()} of {words}, wrapper "
+              f"{time_ms(lambda: nk.nms_sorted(boxes, valid, **kw)):.4f} ms, "
+              f"launches alone {time_ms(launch):.4f} ms, from a graph "
+              f"{time_ms(graph_replay(launch)):.4f} ms", flush=True)
+        for name, per_call, us in kernel_times(launch)[:3]:
+            print(f"    {name[:64]:64s} x{per_call:5.1f}  {us:7.2f} us")
+
+
+def first_kernel_ms(rows, word):
+    """Device ms per launch of the longest kernel whose name holds
+    ``word``; nan where the profiler's pass lost it."""
+    return next((us / 1e3 for name, _, us in rows if word in name),
+                float("nan"))
+
+
+def probe_k2(device):
+    from scda_tpu_torch.ops import roi_ops
+    from scda_tpu_torch.ops.kernels import roi_align_kernel as rk
+
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    # (B, R, stride, C): the serving maps, then the training maps.
+    for b, r, stride, c, backward in ((1, 300, 16, 512, False),
+                                      (1, 300, 16, 1024, False),
+                                      (1, 300, 8, 1024, False),
+                                      (8, 128, 16, 512, True),
+                                      (1, 128, 8, 1024, True),
+                                      (1, 128, 16, 1024, True)):
+        h, w = 512 // stride, 1024 // stride
+        rois = proposal_boxes(gen, b, r, False).to(device)
+        wy, wx = roi_ops.roi_align_axis_weights(
+            rois, h, w, output_size=7, spatial_scale=1.0 / stride,
+            sampling_ratio=2)
+        taps = max(int((wy != 0).sum(-1).max()), int((wx != 0).sum(-1).max()))
+        feat = torch.randn((b, h, w, c), generator=gen).to(device, bf)
+        ref = rk.roi_align_contract_plain(wy, wx, feat)
+        err = float((rk.roi_align_contract_fwd(wy, wx, feat) - ref).abs().max())
+        fwd = lambda: rk.roi_align_contract_fwd(wy, wx, feat)
+        print(f"k2 forward R={r} feat ({b},{h},{w},{c}) bf16, at most {taps} "
+              f"taps a row: max abs err {err:.4g} (max |twin| "
+              f"{float(ref.abs().max()):.4g}), wrapper {time_ms(fwd):.4f} ms, "
+              f"from a graph {time_ms(graph_replay(fwd)):.4f} ms, kernel "
+              f"alone {first_kernel_ms(kernel_times(fwd), 'roi_align'):.4f} ms",
+              flush=True)
+        if not backward:
+            continue
+        g = torch.randn((b, r, 7, 7, c), generator=gen).to(device)
+        ref = rk.roi_align_contract_bwd_plain(wy, wx, g)
+        err = float((rk.roi_align_contract_bwd(wy, wx, g, h, w) - ref)
+                    .abs().max())
+        bwd = lambda: rk.roi_align_contract_bwd(wy, wx, g, h, w)
+        print(f"k2 backward g ({b},{r},7,7,{c}) -> ({b},{h},{w},{c}) f32: max "
+              f"abs err {err:.4g} (max |twin| {float(ref.abs().max()):.4g}), "
+              f"wrapper with its memset {time_ms(bwd):.4f} ms, from a graph "
+              f"{time_ms(graph_replay(bwd)):.4f} ms, kernel alone "
+              f"{first_kernel_ms(kernel_times(bwd), 'roi_align'):.4f} ms",
+              flush=True)
 
 
 def probe_k3(device):
@@ -221,7 +349,8 @@ def probe_peaks(device):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("k3", "k3-phases", "k4", "peaks"))
+    parser.add_argument("what", choices=("k1", "k2", "k3", "k3-phases", "k4",
+                                         "peaks"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA device", file=sys.stderr)
@@ -232,7 +361,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     with torch.no_grad():
-        {"k3": probe_k3, "k3-phases": probe_k3_phases,
+        {"k1": probe_k1, "k2": probe_k2, "k3": probe_k3,
+         "k3-phases": probe_k3_phases,
          "k4": probe_k4, "peaks": probe_peaks}[args.what](device)
     return 0
 

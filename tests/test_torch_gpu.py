@@ -58,6 +58,97 @@ def test_nms_kernel_identical_boxes(cuda):
     assert keep[0, :2].all() and int(keep.sum()) == 2
 
 
+@pytest.mark.parametrize("b,n,max_out,clustered", [
+    (1, 1, 1, False), (8, 63, 5, True), (1, 64, 64, False), (8, 65, 2, True),
+    (1, 6000, 300, False), (1, 6000, 300, True), (8, 6000, 6000, True),
+    (1, 12000, 2000, False), (8, 12000, 2000, True), (1, 12000, 3, False),
+    (2, 16000, 16000, True),    # more columns than a lane's registers hold
+])
+def test_nms_kernel_ragged_rows_and_caps(cuda, b, n, max_out, clustered):
+    """The word-at-a-time scan at ragged sizes (N below, at and past a
+    64-box word; the serving and training sizes) with ``max_output``
+    reached inside the first word, deep in the row, and never; spread
+    boxes (many keeps a word) and clustered ones (most boxes suppressed,
+    so every word is walked); B of 1 and 8; the last row of a batch with
+    no valid box at all."""
+    from scda_tpu_torch.utils.kernel_probe import proposal_boxes
+
+    g = torch.Generator().manual_seed(n + b)
+    boxes = proposal_boxes(g, b, n, clustered).to(cuda)
+    valid = (torch.rand((b, n), generator=g) < 0.9).to(cuda)
+    if b > 1:
+        valid[-1] = False
+    kw = dict(iou_threshold=0.7, max_output=max_out)
+    keep = nms_kernel.nms_sorted(boxes, valid, **kw)
+    assert torch.equal(keep, nms_kernel.nms_sorted_plain(boxes, valid, **kw))
+    assert int(keep.sum(1).max()) <= max_out and not keep[~valid].any()
+
+
+def test_nms_kernel_threshold_ties(cuda):
+    """Pairs whose IoU lies within a few ulps of the threshold, on both
+    sides: the division-free screen must hand them to the exact test.
+    Boxes [0, 0, 9, h] and [0, 0, 9, 9] overlap by (h + 1) / 10; the
+    threshold is set to those very quotients."""
+    hs = torch.arange(0.0, 9.0, 0.25)
+    boxes = torch.zeros(1, 2 * len(hs), 4)
+    boxes[0, 0::2, 2:] = 9.0
+    boxes[0, 1::2, 2] = 9.0
+    boxes[0, 1::2, 3] = hs
+    boxes[0, :, 0::2] += 40.0 * torch.arange(len(hs)).repeat_interleave(2)[:, None]
+    boxes = boxes.to(cuda)
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=cuda)
+    for h in hs.tolist():
+        thr = float(torch.tensor((h + 1.0) * 10.0) / torch.tensor(100.0))
+        for t in (thr, float(torch.nextafter(torch.tensor(thr), torch.tensor(0.0))),
+                  float(torch.nextafter(torch.tensor(thr), torch.tensor(1.0)))):
+            kw = dict(iou_threshold=t, max_output=1000)
+            assert torch.equal(nms_kernel.nms_sorted(boxes, valid, **kw),
+                               nms_kernel.nms_sorted_plain(boxes, valid, **kw))
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 96, 100, 512, 1024])
+@pytest.mark.parametrize("kind", ["sparse", "long_row", "dense"])
+def test_roi_align_kernels_channel_widths_and_tap_capacity(cuda, feat_dtype,
+                                                            c, kind):
+    """One roi (R=1) and seven, forward and backward, at channel counts
+    that are and are not multiples of the 16-byte vector (100 is none for
+    bf16), with rows of at most 4 taps (the unrolled path), one row of 9
+    taps among sparse ones, and dense weights (the general loops).  f32
+    features: rtol=atol=1e-5; bf16: rtol=1e-2, atol=1e-3; the backward
+    f32 at atol 1e-5 of the largest |dfeat|, bf16 within 2 ulps."""
+    from scda_tpu_torch.ops import roi_ops
+    from scda_tpu_torch.utils.kernel_probe import proposal_boxes
+
+    h, w = 32, 64
+    g = torch.Generator().manual_seed(c)
+    for r in (1, 7):
+        if kind == "dense":
+            wy, wx = (torch.rand((2, r, 7, n), generator=g).to(cuda)
+                      for n in (h, w))
+        else:
+            wy, wx = roi_ops.roi_align_axis_weights(
+                proposal_boxes(g, 2, r, False).to(cuda), h, w)
+            if kind == "long_row":
+                wx[1, r - 1, 3, 5:14] = 0.125
+        feat = torch.randn((2, h, w, c), generator=g).to(cuda, feat_dtype)
+        out = roi_align_kernel.roi_align_contract(wy, wx, feat)
+        ref = roi_align_kernel.roi_align_contract_plain(wy, wx, feat)
+        tol = (1e-5, 1e-5) if feat_dtype == torch.float32 else (1e-2, 1e-3)
+        torch.testing.assert_close(out, ref, rtol=tol[0], atol=tol[1])
+        cot = torch.randn((2, r, 7, 7, c), generator=g).to(cuda)
+        back = roi_align_kernel.roi_align_contract_bwd(wy, wx, cot, h, w,
+                                                       feat_dtype)
+        ref = roi_align_kernel.roi_align_contract_bwd_plain(wy, wx, cot,
+                                                            feat_dtype)
+        if feat_dtype == torch.float32:
+            torch.testing.assert_close(back, ref, rtol=1e-5,
+                                       atol=1e-5 * ref.abs().max().item())
+        else:
+            ref = ref.float()
+            assert bool(((back.float() - ref).abs() <= 2 * _bf16_ulp(ref)).all())
+
+
 @pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,r,p,h,w,c", [
     (1, 3, 7, 5, 9, 33), (2, 17, 5, 32, 64, 512), (1, 4, 7, 64, 160, 130),

@@ -221,3 +221,122 @@ def test_multiscale_pool_differentiates_as_jax(rng):
     assert np.abs(ref8).max() > 0 and np.abs(ref16).max() > 0
     np.testing.assert_allclose(t8.grad.numpy(), ref8, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(t16.grad.numpy(), ref16, rtol=1e-5, atol=1e-5)
+
+
+# ---- a model of the CUDA kernel's tap compaction (csrc/roi_align.cu) ----
+#
+# The kernel runs only on a card.  Its algorithm is modelled here in
+# numpy and held to the plain twins: per roi, the nonzero taps of the 2*P
+# weight rows are compacted once, in index order; a roi whose longest row
+# has at most _TAPS taps takes loops of fixed length _TAPS guarded by the
+# counts, any other roi the general loops over the same lists.  The
+# backward lists, per touched map row and column, the bins that reach it,
+# and gathers per touched pixel instead of scattering per tap pair.
+
+_TAPS = 4     # kTaps in csrc/roi_align.cu
+
+
+def _compact(rows):
+    """Per row: (indices, values) of the nonzero entries, in order."""
+    return [(np.flatnonzero(r), r[np.flatnonzero(r)]) for r in rows]
+
+
+def _contract_model(wy, wx, feat):
+    b, r, p, _ = wy.shape
+    out = np.zeros((b, r, p, p, feat.shape[-1]), np.float32)
+    unrolled = 0
+    for bi in range(b):
+        for ri in range(r):
+            hs, ws = _compact(wy[bi, ri]), _compact(wx[bi, ri])
+            sparse = max(len(i) for i, _ in hs + ws) <= _TAPS
+            unrolled += sparse
+            for pi, (hi, hv) in enumerate(hs):
+                for qi, (wi, wv) in enumerate(ws):
+                    acc = np.zeros(feat.shape[-1], np.float32)
+                    w_taps = range(_TAPS) if sparse else range(len(wi))
+                    h_taps = range(_TAPS) if sparse else range(len(hi))
+                    for k in w_taps:
+                        if k >= len(wi):
+                            continue
+                        s = np.zeros_like(acc)
+                        for m in h_taps:
+                            if m < len(hi):
+                                s += hv[m] * feat[bi, hi[m], wi[k]]
+                        acc += wv[k] * s
+                    out[bi, ri, pi, qi] = acc
+    return out, unrolled
+
+
+def _column_lists(weights):
+    """``list_columns`` of the kernel: for every column of a (P, len)
+    weight matrix that holds a nonzero, in order, its index and its
+    (p, weight) entries."""
+    return [(i, [(p, weights[p, i]) for p in range(weights.shape[0])
+                 if weights[p, i] != 0])
+            for i in range(weights.shape[1]) if (weights[:, i] != 0).any()]
+
+
+def _contract_bwd_model(wy, wx, g, h, w):
+    """The backward kernel's gather: per roi, each touched pixel sums
+    wy[p, h] * sum_q wx[q, w] * g[p, q] over the bins listed for its row
+    and column, and is added to dfeat once."""
+    b, r = wy.shape[:2]
+    dfeat = np.zeros((b, h, w, g.shape[-1]), np.float32)
+    adds = 0
+    for bi in range(b):
+        for ri in range(r):
+            rows = _column_lists(wy[bi, ri])
+            cols = _column_lists(wx[bi, ri])
+            for hi, h_bins in rows:
+                for wi, w_bins in cols:
+                    acc = np.zeros(g.shape[-1], np.float32)
+                    for p, a in h_bins:
+                        t = np.zeros_like(acc)
+                        for q, bq in w_bins:
+                            t += bq * g[bi, ri, p, q]
+                        acc += a * t
+                    dfeat[bi, hi, wi] += acc
+                    adds += 1
+    return dfeat, adds
+
+
+@pytest.mark.parametrize("case", ["sparse", "long_row", "dense",
+                                  "zero_row", "adaptive"])
+def test_tap_compaction_model_matches_plain_twins(rng, case):
+    """``sparse``: every row within the capacity (all rois unrolled);
+    ``long_row``: one row of 6 taps sends its roi, and only it, to the
+    general loops; ``dense``: every row overflows; ``zero_row``: rows with
+    no tap at all (a roi off the map) give zeros; ``adaptive``: the
+    sampling mode whose rows can be dense.  f32 at rtol=atol=1e-5."""
+    b, r, p, c = 2, 5, 7, 6
+    if case == "dense":
+        wy = rng.rand(b, r, p, H).astype(np.float32)
+        wx = rng.rand(b, r, p, W).astype(np.float32)
+    else:
+        wy, wx = _mode_weights(rng, "adaptive" if case == "adaptive"
+                               else "align", b, r, p)
+    if case == "long_row":
+        wx[1, 2, 3, 2:8] = 0.25
+    if case == "zero_row":
+        wy[0, 3] = 0.0
+        wx[1, 4, 2] = 0.0
+    feat = rng.randn(b, H, W, c).astype(np.float32)
+    g = rng.randn(b, r, p, p, c).astype(np.float32)
+    twy, twx = torch.from_numpy(wy), torch.from_numpy(wx)
+
+    out, unrolled = _contract_model(wy, wx, feat)
+    ref = roi_align_kernel.roi_align_contract_plain(
+        twy, twx, torch.from_numpy(feat)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    assert unrolled == {"sparse": b * r, "zero_row": b * r,
+                        "long_row": b * r - 1, "dense": 0}.get(case, unrolled)
+    if case == "zero_row":
+        assert not out[0, 3].any() and not out[1, 4, :, 2].any()
+
+    back, adds = _contract_bwd_model(wy, wx, g, H, W)
+    ref = roi_align_kernel.roi_align_contract_bwd_plain(
+        twy, twx, torch.from_numpy(g)).numpy()
+    np.testing.assert_allclose(back, ref, rtol=1e-5, atol=1e-5)
+    # One add per touched pixel: never more than one per tap pair.
+    pairs = int(((wy != 0).sum(-1).sum(-1) * (wx != 0).sum(-1).sum(-1)).sum())
+    assert adds <= pairs and (case != "sparse" or adds < pairs)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving and training paths through its entry points,
+Drives the port's serving, training and adaptation paths through its entry points,
 with seeded random weights, and checks its five CUDA kernels:
 
   * VGG16 Faster R-CNN (BASELINE config #1): 512x1024 canvas, proposals
@@ -41,10 +41,26 @@ non-zero:
      one f32 step's gradients with the kernels against the same step
      with every wrapper swapped for its twin (also with the twins'
      outputs perturbed by rounding-sized noise, which sets the bound),
-     and its losses against the same step on the CPU.
+     and its losses against the same step on the CPU;
+  6. scda    — the SCDA adaptation step on VGG16 (BASELINE configs #3 and
+     #4: ``cfgs/scda_foggy.yml`` joint at bs 1 and 8, 9 classes;
+     ``cfgs/scda_sim10k_car.yml`` car-only, class-agnostic, alternating
+     at bs 1), source frames and fogged target frames: img/s per source
+     image, losses, ``d_acc``, peak memory, launches per step (K1 2, K2
+     3 forward and 3 backward, K3 2), the fixed batch's detection loss
+     falling, a profiler pass over three steps; K2 forward and backward
+     on the mined boxes (R=9) and K1 at (B, 12000) -> 300 against their
+     twins with times and bounds; one f32 joint step's gradients of
+     detector and discriminator with the kernels against the twins', its
+     metrics against the same step on the CPU, and the mining's k-means
+     on the card against the CPU on the same proposals.
 
 The last lines are the ``nvidia-smi`` line, the kernels summary and
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
+``{"ok": true, "device": {...}}``.  While working on one path,
+``python3 chip_smoke.py --only vgg16_scda`` (a comma-separated subset of
+``vgg16,res101_ms,vgg16_train,res101_ms_train,vgg16_scda``) runs just
+that and ends with ``{"ok": false, "partial": [...]}``: only the run
+with no arguments is the check.  It imports nothing of JAX and nothing
 of the JAX package.
 """
 
@@ -67,6 +83,12 @@ TRAIN_STEPS = 10
 RES_TRAIN_WARMUP = 2
 RES_TRAIN_STEPS = 5
 TRAIN_SEED = 3
+SCDA_WARMUP = 3
+SCDA_STEPS = 10
+TARGET_FOG = 0.5             # the training CLI's default fog level
+# Proposals that may change group between the card's k-means and the
+# CPU's (summation order at a near-tie), as a share of the valid ones.
+MINING_DIFF_SHARE = 0.01
 # The gradient check's plain swap (see ``Port.grad_check``).
 FWD_GAP = 1e-5
 PERTURB = 1e-6
@@ -268,11 +290,13 @@ def library_times(torch, run, to_nhwc, plain_out, what):
             "library_max_abs_err": err}
 
 
-def make_frames(cfg, n, seed):
-    """Distinct structured 1024x2048 scenes through the port's host prep
-    (BGR, scale rule, mean subtraction, fixed canvas; gt boxes scaled and
-    padded as the loader does).  Returns (images, infos, gt_boxes,
-    num_boxes), lists of per-frame arrays with a batch axis of 1."""
+def make_frames(cfg, n, seed, fog=0.0, classes=None):
+    """Distinct structured 1024x2048 scenes (fogged with ``fog``; objects
+    of ``classes``, default the fixture's four) through the port's host
+    prep (BGR, scale rule, mean subtraction, fixed canvas; gt boxes
+    scaled and padded as the loader does).  Returns (images, infos,
+    gt_boxes, num_boxes), lists of per-frame arrays with a batch axis of
+    1."""
     import numpy as np
 
     from scda_tpu_torch.data.pipeline import prepare_gt_boxes, prepare_image
@@ -283,7 +307,8 @@ def make_frames(cfg, n, seed):
     images, infos, gts, nums = [], [], [], []
     for i in range(n):
         rgb, boxes, labels = _draw_scene(rng, 1024, 2048, max_objects=8,
-                                         classes=SYNTH_CLASSES)
+                                         classes=classes or SYNTH_CLASSES,
+                                         fog=fog)
         canvas, scale, (vh, vw) = prepare_image(
             np.ascontiguousarray(rgb[:, :, ::-1]), cfg.data)
         record = ImageRecord(image_id=str(i), image_path="", width=2048,
@@ -335,7 +360,9 @@ class Port:
     """The port's modules, imported once the device check has passed."""
 
     def __init__(self, torch):
+        from scda_tpu_torch.adapt import scda
         from scda_tpu_torch.config import config_from_yaml, get_config, replace_path
+        from scda_tpu_torch.core.kmeans import kmeans
         from scda_tpu_torch.evals.detect import (
             bf16_inference_params, detection_match_rate,
         )
@@ -348,7 +375,7 @@ class Port:
         )
         from scda_tpu_torch.train.state import create_train_state
         from scda_tpu_torch.train.steps import (
-            make_train_step, step_generators,
+            ScdaGenerators, make_train_step, step_generators,
         )
 
         self.torch = torch
@@ -357,6 +384,8 @@ class Port:
         self.create_train_state = create_train_state
         self.make_train_step = make_train_step
         self.step_generators = step_generators
+        self.scda, self.kmeans = scda, kmeans
+        self.ScdaGenerators = ScdaGenerators
         self.bf16_inference_params = bf16_inference_params
         self.detection_match_rate = detection_match_rate
         self.detector, self.resnet, self.vgg = detector, resnet, vgg
@@ -735,28 +764,46 @@ class Port:
         return {k: float(v) for k, v in out.metrics.items()}
 
     def train_run(self, cfg, model, batches, path, warmup, steps,
-                  want_per_step, record=False):
-        """The main train path: ``warmup`` steps (the first recording K1's,
-        K3's and the K2 backward's inputs with ``record``), then ``steps``
-        timed steps with every launch count set to 0 just before and
-        read just after.  Returns (launches, records)."""
+                  want_per_step, record=False, tgt_batches=None):
+        """The main train path: ``warmup`` steps (the first recording the
+        kernels' inputs with ``record``), then ``steps`` timed steps with
+        every launch count set to 0 just before and read just after.
+        With ``tgt_batches`` (image, im_info) the step is the SCDA
+        adaptation step (``cfg.adapt.d_update``), with a seeded
+        discriminator, and img/s counts source images.  Returns
+        (launches, records)."""
         torch = self.torch
         bs = batches[0][0].shape[0]
         state = self.create_train_state(cfg, model, steps_per_epoch=1000)
-        step = self.make_train_step(model, cfg)
+        if tgt_batches is None:
+            step = self.make_train_step(model, cfg)
+        else:
+            d_model = self.scda.init_discriminator(
+                cfg, torch.Generator().manual_seed(cfg.train.seed + 1),
+                batches[0][0].device)
+            state = self.scda.create_scda_state(cfg, state, d_model)
+            step = self.scda.make_scda_train_step(model, d_model, cfg)
+
+        def run(state, i):
+            tgt = tgt_batches[i % len(tgt_batches)] if tgt_batches else ()
+            return step(state, *batches[i % len(batches)], *tgt)
+
         before = self.fixed_losses(model, cfg, batches[0])
         records = {}
         for i in range(warmup):
-            batch = batches[i % len(batches)]
             if i == 0 and record:
                 with Recorder(self.nms, "nms_sorted") as rec_nms, \
                         Recorder(self.vgg, "vgg_stem_fused") as rec_stem, \
+                        Recorder(self.roi_ops, "roi_align_contract") as rec_roi, \
+                        Recorder(self.scda, "mine_regions") as rec_mine, \
                         Recorder(self.rk, "roi_align_contract_bwd") as rec_bwd:
-                    state, first = step(state, *batch)
+                    state, first = run(state, i)
                 records = {"nms": rec_nms.calls, "vgg_stem": rec_stem.calls,
+                           "roi_align": rec_roi.calls,
+                           "mined": rec_mine.results,
                            "roi_align_bwd": rec_bwd.calls}
             else:
-                state, m = step(state, *batch)
+                state, m = run(state, i)
                 first = m if i == 0 else first
         torch.cuda.synchronize()
         for w in self.wrappers.values():
@@ -764,9 +811,8 @@ class Port:
         torch.cuda.reset_peak_memory_stats()
         rates = []
         for i in range(steps):
-            batch = batches[(warmup + i) % len(batches)]
             t0 = time.perf_counter()
-            state, last = step(state, *batch)
+            state, last = run(state, warmup + i)
             torch.cuda.synchronize()
             rates.append(bs / (time.perf_counter() - t0))
         launches = {k: w.launches for k, w in self.wrappers.items()}
@@ -776,6 +822,8 @@ class Port:
                   "last_step": {k: float(v) for k, v in last.items()}}
         emit({"phase": "train", "path": path, "dtype": "bfloat16",
               "params": "float32", "tf32": False, "batch_size": bs,
+              "adapt": cfg.adapt.d_update if tgt_batches else None,
+              "img_per_s_unit": "source images",
               "warmup_steps": warmup, "timed_steps": steps,
               "img_per_s_median": median(rates), "img_per_s": rates,
               "losses": losses,
@@ -792,6 +840,11 @@ class Port:
         require(after["loss"] < before["loss"],
                 f"{path}: the fixed batch's total loss did not fall: "
                 f"{before['loss']} -> {after['loss']}")
+        if tgt_batches:
+            want_keys = {"adv", "adv_src", "adv_tgt", "d_acc"} | (
+                {"d_loss"} if cfg.adapt.d_update == "alternating" else set())
+            require(want_keys <= set(losses["last_step"]),
+                    f"{path}: SCDA metrics missing from {sorted(last)}")
         want = {k: v * steps for k, v in want_per_step.items()}
         require(launches == want,
                 f"{path}: launches {launches}, expected {want}")
@@ -800,7 +853,7 @@ class Port:
 
         def three_steps():
             for i in range(3):
-                holder[0], _ = step(holder[0], *batches[i % len(batches)])
+                holder[0], _ = run(holder[0], i)
 
         self.profile_pass(three_steps, 3, path, 1e3 * bs / median(rates))
         return launches, records
@@ -814,7 +867,7 @@ class Port:
         torch = self.torch
         err_max, results = 0.0, []
         for (wy, wx, g, h, w, _), _ in calls:
-            label = f"bs{g.shape[0]}_stride{CANVAS[0] // h}"
+            label = f"bs{g.shape[0]}_R{g.shape[1]}_stride{CANVAS[0] // h}"
             scale = float(g.abs().max().item())
             require(scale > 0, f"K2 backward {label}: zero cotangent")
             gn = g / scale
@@ -877,10 +930,14 @@ class Port:
                      self.bk.bottleneck_chain_plain),
                 Recorder(self.nms, "nms_sorted", self.nk.nms_sorted_plain)]
 
-    def grad_check(self, cfg32, state_dict, batch, path, nonzero):
+    def grad_check(self, cfg32, state_dict, batch, path, nonzero, tgt=None):
         """One f32 step's gradients with the kernels against the same step
         with every wrapper swapped for its twin, and its losses against
-        the same forward on the CPU.
+        the same forward on the CPU.  With ``tgt`` (image, im_info) the
+        step is the joint SCDA step: the discriminator's parameters join
+        the detector's (as ``D.<name>``), both towers' proposals are
+        pinned, and the mining's k-means on the card is held against the
+        CPU's (:meth:`mining_vs_cpu`).
 
         Every run uses the same batch, CPU generators seeded alike (the
         same anchor and roi draws and dropout masks on every device), and
@@ -911,37 +968,64 @@ class Port:
         model = self.train_model(cfg32, device, state_dict)
         state = self.create_train_state(cfg32, model)
         names, params = state.trainable()
+        names, params = list(names), list(params)
         differentiable = ("vgg_stem_fused", "roi_align_contract",
                           "bottleneck_chain")
+        # ``propose`` at the names the forward calls it through: the
+        # detector's, and for SCDA the target tower's.
+        pins = [self.detector] + ([self.scda] if tgt else [])
+        loss_keys = ("loss", "rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")
+        d_model = d_state = None
+        if tgt:
+            d_model = self.scda.init_discriminator(
+                cfg32, torch.Generator().manual_seed(TRAIN_SEED + 1), device)
+            d_state = {k: v.clone() for k, v in d_model.state_dict().items()}
+            names += [f"D.{n}" for n, _ in d_model.named_parameters()]
+            params += [p for _, p in d_model.named_parameters()]
+            nonzero = (*nonzero, "D.")
+            loss_keys += ("adv", "adv_src", "adv_tgt", "d_acc")
 
         def gens():
-            return self.detector.StepGenerators(
-                *(torch.Generator().manual_seed(TRAIN_SEED + i)
-                  for i in range(3)))
+            g = [torch.Generator().manual_seed(TRAIN_SEED + i)
+                 for i in range(5)]
+            det = self.detector.StepGenerators(*g[:3])
+            return self.ScdaGenerators(det, g[3], g[4]) if tgt else det
 
-        recs = [Recorder(self.detector, "propose"),
-                Recorder(self.vgg, "vgg_stem_fused"),
-                Recorder(self.roi_ops, "roi_align_contract"),
-                Recorder(self.resnet, "bottleneck_chain")]
+        def forward(m, d, b, t):
+            """(loss, metrics) of the step's forward."""
+            if t is None:
+                out = self.detector.forward_train(m, *b, cfg32, gens())
+                return out.loss, out.metrics
+            return self.scda.scda_forward(m, d, b, *t, cfg32, gens())
+
+        recs = [Recorder(mod, "propose") for mod in pins] + [
+            Recorder(self.vgg, "vgg_stem_fused"),
+            Recorder(self.roi_ops, "roi_align_contract"),
+            Recorder(self.resnet, "bottleneck_chain"),
+            Recorder(self.scda, "mine_regions")]
         with contextlib.ExitStack() as stack:
             for r in recs:
                 stack.enter_context(r)
-            out_k = self.detector.forward_train(model, *batch, cfg32, gens())
-        grads_k = torch.autograd.grad(out_k.loss, params)
-        props = recs[0].results[0]
+            loss_k, metrics_k = forward(model, d_model, batch, tgt)
+        grads_k = torch.autograd.grad(loss_k, params)
+        props = [r.results[0] for r in recs[:len(pins)]]
         kernel_values = {r.name: [v.detach() for v in r.results]
-                         for r in recs[1:]}
+                         for r in recs[len(pins):-1]}
+        mined_calls, mined = recs[-1].calls, recs[-1].results
         counts = {k: w.launches for k, w in self.wrappers.items()}
 
+        def pinned(on_device=lambda t: t):
+            return [Recorder(mod, "propose",
+                             lambda *a, p=p, **k: type(p)(*map(on_device, p)))
+                    for mod, p in zip(pins, props)]
+
         def twin_grads(values):
-            swaps = self.twins(values) + [
-                Recorder(self.detector, "propose", lambda *a, **k: props)]
+            swaps = self.twins(values) + pinned()
             with contextlib.ExitStack() as stack:
                 for sw in swaps:
                     stack.enter_context(sw)
-                out = self.detector.forward_train(model, *batch, cfg32,
-                                                  gens())
-                grads = torch.autograd.grad(out.loss, params)
+                loss, _ = forward(model, d_model, batch, tgt)
+                grads = torch.autograd.grad(loss, params)
             outs = {sw.name: [v.detach() for v in sw.results]
                     for sw in swaps if sw.name in differentiable}
             return grads, outs
@@ -986,15 +1070,29 @@ class Port:
         checked = [n for n in names if n.startswith(nonzero)]
 
         cpu_model = self.train_model(cfg32, "cpu", state_dict)
-        cpu_props = type(props)(*(t.cpu() for t in props))
-        with Recorder(self.detector, "propose", lambda *a, **k: cpu_props):
+        cpu_d = cpu_tgt = None
+        cpu_swaps = pinned(lambda t: t.cpu())
+        mining = None
+        if tgt:
+            cpu_d = self.scda.init_discriminator(
+                cfg32, torch.Generator().manual_seed(0))
+            cpu_d.load_state_dict(d_state)
+            cpu_tgt = tuple(t.cpu() for t in tgt)
+            mining = self.mining_vs_cpu(mined_calls, cfg32.adapt, path)
+            if mining["differing"]:
+                # A proposal at a near-tie changed group: the CPU step
+                # then takes the card's regions, and the line says so.
+                regions = iter([type(m)(*(t.cpu() for t in m)) for m in mined])
+                cpu_swaps.append(Recorder(self.scda, "mine_regions",
+                                          lambda *a, **k: next(regions)))
+        with contextlib.ExitStack() as stack:
+            for sw in cpu_swaps:
+                stack.enter_context(sw)
             with torch.no_grad():
-                out_c = self.detector.forward_train(
-                    cpu_model, *(t.cpu() for t in batch), cfg32, gens())
-        losses = {k: (float(out_k.metrics[k].detach()),
-                      float(out_c.metrics[k]))
-                  for k in ("loss", "rpn_cls", "rpn_box", "rcnn_cls",
-                            "rcnn_box")}
+                _, metrics_c = forward(cpu_model, cpu_d,
+                                       tuple(t.cpu() for t in batch), cpu_tgt)
+        losses = {k: (float(metrics_k[k].detach()), float(metrics_c[k]))
+                  for k in loss_keys}
         loss_rel = {k: abs(a - b) / max(abs(b), 1e-12)
                     for k, (a, b) in losses.items()}
         emit({"phase": "train_grad_check", "path": path, "dtype": "float32",
@@ -1012,6 +1110,7 @@ class Port:
               "grad_norms": {n: float(g.norm().item())
                              for n, g in zip(names, grads_k)
                              if n in checked[:4]},
+              "adapt": "joint" if tgt else None, "mining_vs_cpu": mining,
               "losses_card_vs_cpu": losses, "loss_rel_err": loss_rel})
         require(rel[worst] <= 1e-3,
                 f"{path}: gradient of {worst} off its twin's by "
@@ -1027,6 +1126,39 @@ class Port:
         require(max(loss_rel.values()) <= 1e-4,
                 f"{path}: f32 losses card vs CPU {losses}")
         return rel[worst]
+
+    def mining_vs_cpu(self, calls, ac, path):
+        """The mining's k-means on the card against the CPU, on the
+        proposals the recorded ``mine_regions`` calls got and the same
+        init noise (drawn on the CPU from one seed): the count of valid
+        proposals whose group differs, held under ``MINING_DIFF_SHARE``
+        of them.  The two devices sum a centre's members in different
+        orders, so a proposal at a near-tie may change group."""
+        torch = self.torch
+        differing = valid = 0
+        for (args, _) in calls:
+            boxes, mask = args[0], args[1]
+            n = min(ac.mining_top_n, boxes.shape[1])
+            boxes, mask = boxes[:, :n].float(), mask[:, :n]
+            centers = torch.stack([0.5 * (boxes[..., 0] + boxes[..., 2]),
+                                   0.5 * (boxes[..., 1] + boxes[..., 3])], -1)
+            runs = []
+            for pts, m in ((centers, mask), (centers.cpu(), mask.cpu())):
+                _, assign, counts = self.kmeans(
+                    pts, ac.num_groups, mask=m, iters=ac.kmeans_iters,
+                    generator=torch.Generator().manual_seed(TRAIN_SEED),
+                    init=ac.kmeans_init)
+                runs.append((assign.cpu(), counts.cpu()))
+            differing += int(((runs[0][0] != runs[1][0]) & mask.cpu()).sum())
+            valid += int(mask.sum().item())
+        out = {"calls": len(calls), "valid_proposals": valid,
+               "differing": differing, "bound": MINING_DIFF_SHARE * valid}
+        require(len(calls) == 2 and valid > 0,
+                f"{path}: expected two mining calls on valid proposals: {out}")
+        require(differing <= MINING_DIFF_SHARE * valid,
+                f"{path}: k-means on the card and on the CPU disagree on "
+                f"{differing} of {valid} proposals")
+        return out
 
 
 def vgg16_path(port, device, frames):
@@ -1360,6 +1492,167 @@ def res101_ms_train_path(port, device, frames):
     return summary, {"res101_ms_train_bs1": launches}
 
 
+def scda_kernel_checks(port, records, cfg, tag):
+    """K1 at the target tower's (B, 12000) -> 300 and K2, forward and
+    backward, on the mined boxes (R = ``num_groups`` map-sized rois per
+    image, P = ``region_pool_size``), each against its twin on the inputs
+    one recorded SCDA step gave it, with times and bounds.  ``tag``
+    prefixes the summary's keys."""
+    torch = port.torch
+    k, p = cfg.adapt.num_groups, cfg.adapt.region_pool_size
+    summary = {}
+
+    require(len(records["nms"]) == 2,
+            f"{tag}: expected two K1 calls, got {len(records['nms'])}")
+    nms_err, nms_results = port.check_nms(
+        records["nms"], ("scda_source_proposals", "scda_target_proposals"))
+    (sb, sv), kw = records["nms"][1][0][:2], records["nms"][1][1]
+    require(kw["max_output"] == min(cfg.train.proposal.post_nms_top_n,
+                                    cfg.adapt.mining_top_n),
+            f"{tag}: the target tower's NMS budget is {kw['max_output']}")
+    summary["nms"] = {
+        f"{tag}_shape": list(sv.shape), f"{tag}_max_output": kw["max_output"],
+        **{f"{tag}_{key}": v for key, v in port.nms_times(sb, sv, kw, 2).items()}}
+    emit({"phase": "kernel", "path": tag, "kernel": "nms",
+          "cases": nms_results, "max_abs_err": float(nms_err),
+          **summary["nms"]})
+
+    # The mined regions of the step: how many groups are valid, and how
+    # large a region is on the stride-16 map.
+    mined_stats = []
+    for m, domain in zip(records["mined"], ("source", "target")):
+        w = (m.boxes[..., 2] - m.boxes[..., 0]) / cfg.model.feat_stride
+        h = (m.boxes[..., 3] - m.boxes[..., 1]) / cfg.model.feat_stride
+        v = m.valid
+        mined_stats.append({
+            "domain": domain, "groups": int(v.numel()),
+            "valid_groups": int(v.sum().item()),
+            "mean_map_w": float(w[v].mean().item()) if bool(v.any()) else 0.0,
+            "mean_map_h": float(h[v].mean().item()) if bool(v.any()) else 0.0,
+            "finite": bool(torch.isfinite(m.boxes).all().item())})
+    require(all(st["finite"] and st["valid_groups"] >= 1 for st in mined_stats),
+            f"{tag}: mining gave no valid, finite region: {mined_stats}")
+
+    fwd = [((wy.detach(), wx.detach(), feat.detach()), {})
+           for (wy, wx, feat), _ in records["roi_align"]
+           if wy.shape[1] == k and wy.shape[2] == p]
+    require(len(records["roi_align"]) == 3 and len(fwd) == 2,
+            f"{tag}: expected K2 forward on the sampled rois and on two "
+            f"sets of {k} mined regions")
+    with torch.no_grad():
+        roi_err, roi_results = port.check_roi(fwd, ("scda_source_groups",
+                                                     "scda_target_groups"))
+        fwd_times = [{
+            "wy": list(wy.shape), "feat": list(feat.shape),
+            "max_taps_per_row": int(torch.maximum(
+                (wy != 0).sum(-1).max(), (wx != 0).sum(-1).max()).item()),
+            "ms": time_ms(torch, lambda: port.rk.roi_align_contract(
+                wy, wx, feat), 20),
+            "plain_ms": time_ms(torch, lambda: port.rk.
+                                roi_align_contract_plain(wy, wx, feat), 20),
+            **roi_bound(wy, wx, feat, port.rk.roi_align_contract(wy, wx, feat))}
+            for (wy, wx, feat), _ in fwd]
+        (wy, wx, feat), _ = fwd[0]
+        alone = port.device_kernel_ms(
+            lambda: port.rk.roi_align_contract(wy, wx, feat),
+            ("roi_align_contract",))["roi_align_contract"]
+    summary["roi_align"] = {
+        "max_abs_err": roi_err,
+        **{f"{tag}_{key}": fwd_times[0][key]
+           for key in ("wy", "feat", "ms", "plain_ms", "bound_ms", "bound_by")},
+        f"{tag}_kernel_alone_ms": alone}
+    emit({"phase": "kernel", "path": tag, "kernel": "roi_align",
+          "mined": mined_stats, "cases": roi_results, "times": fwd_times,
+          **summary["roi_align"]})
+
+    bwd = [c for c in records["roi_align_bwd"] if c[0][2].shape[1] == k]
+    require(len(records["roi_align_bwd"]) == 3 and len(bwd) == 2,
+            f"{tag}: expected three K2 backwards, two of them on {k} regions")
+    bwd_err, bwd_results = port.check_roi_bwd(bwd)
+    bwd_times = []
+    for (wy, wx, g, h, w, dt), _ in bwd:
+        bwd_times.append({
+            "g": list(g.shape), "feat_hw": [h, w], "dtype": str(dt),
+            "ms": time_ms(torch, lambda: port.rk.roi_align_contract_bwd(
+                wy, wx, g, h, w, dt), 20),
+            "plain_ms": time_ms(torch, lambda: port.rk.
+                                roi_align_contract_bwd_plain(wy, wx, g, dt), 5),
+            **roi_bound(wy, wx, port.rk.roi_align_contract_bwd(
+                wy, wx, g, h, w, dt), g)})
+    (wy, wx, g, h, w, dt), _ = bwd[0]
+    alone = port.device_kernel_ms(
+        lambda: port.rk.roi_align_contract_bwd(wy, wx, g, h, w, dt),
+        ("roi_align_contract_bwd",))["roi_align_contract_bwd"]
+    summary["roi_align_bwd"] = {
+        "max_abs_err": bwd_err,
+        **{f"{tag}_{key}": bwd_times[0][key]
+           for key in ("g", "ms", "plain_ms", "bound_ms", "bound_by")},
+        f"{tag}_kernel_alone_ms": alone}
+    emit({"phase": "kernel", "path": tag, "kernel": "roi_align_bwd",
+          "cases": bwd_results, "times": bwd_times,
+          **summary["roi_align_bwd"]})
+    return summary
+
+
+def vgg16_scda_path(port, device, frames):
+    """The SCDA adaptation step on VGG16: joint at bs 1 and 8 (9 classes,
+    ``cfgs/scda_foggy.yml``) and car-only class-agnostic alternating at bs
+    1 (``cfgs/scda_sim10k_car.yml``), the kernel checks on the mined
+    boxes of the joint steps, the f32 gradient check of the joint step."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    want = {"nms": 2, "roi_align": 3, "roi_align_bwd": 3, "vgg_stem": 2,
+            "bottleneck_chain": 0}
+    foggy = os.path.join(here, "cfgs", "scda_foggy.yml")
+    car = os.path.join(here, "cfgs", "scda_sim10k_car.yml")
+    cfg32, cfg16 = port.train_cfgs("vgg16", 1, foggy)
+    require(cfg16.adapt.enabled and cfg16.adapt.d_update == "joint"
+            and cfg16.adapt.num_groups == 9,
+            "cfgs/scda_foggy.yml did not give the joint SCDA config")
+    tgt_frames = make_frames(cfg16, N_FRAMES, seed=2, fog=TARGET_FOG)[:2]
+    launches, summary = {}, {}
+    for bs in (1, 8):
+        _, cfg = port.train_cfgs("vgg16", bs, foggy)
+        model = port.train_model(cfg, device)
+        if bs == 1:
+            state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+        path = f"vgg16_scda_joint_bs{bs}"
+        launches[path], records = port.train_run(
+            cfg, model, port.train_batches(frames, bs, device), path,
+            SCDA_WARMUP, SCDA_STEPS, want, record=True,
+            tgt_batches=port.train_batches(tgt_frames, bs, device))
+        del model
+        checks = scda_kernel_checks(port, records, cfg, f"scda_bs{bs}")
+        for kernel, values in checks.items():
+            into = summary.setdefault(kernel, {})
+            err = max(into.get("max_abs_err", 0.0),
+                      values.get("max_abs_err", 0.0))
+            into.update(values, max_abs_err=err)
+        del records
+
+    # BASELINE config #4's shape: one foreground class, a class-agnostic
+    # box head, alternating D/G updates.
+    _, cfg_car = port.train_cfgs("vgg16", 1, car)
+    cfg_car = port.replace_path(cfg_car, "model.num_classes", 2)
+    require(cfg_car.model.class_agnostic
+            and cfg_car.adapt.d_update == "alternating",
+            "cfgs/scda_sim10k_car.yml did not give the car-only config")
+    car_src = make_frames(cfg_car, 4, seed=3, classes=("car",))
+    car_tgt = make_frames(cfg_car, 4, seed=4, fog=TARGET_FOG,
+                          classes=("car",))[:2]
+    model = port.train_model(cfg_car, device)
+    path = "vgg16_scda_car_alternating_bs1"
+    launches[path], _ = port.train_run(
+        cfg_car, model, port.train_batches(car_src, 1, device), path,
+        SCDA_WARMUP, SCDA_STEPS, want,
+        tgt_batches=port.train_batches(car_tgt, 1, device))
+    del model
+
+    port.grad_check(cfg32, state_dict, port.train_batches(frames, 1, device)[0],
+                    "vgg16_scda_joint", ("RCNN_base.10.",),
+                    tgt=port.train_batches(tgt_frames, 1, device)[0])
+    return summary, launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "scda_tpu_torch")):
@@ -1399,9 +1692,16 @@ def main() -> int:
 
     # ---- phases 3 to 5, per path -------------------------------------
     launches, summaries, timings = {}, {}, {}
-    for name, fn in (("vgg16", vgg16_path), ("res101_ms", res101_ms_path),
-                     ("vgg16_train", vgg16_train_path),
-                     ("res101_ms_train", res101_ms_train_path)):
+    paths = (("vgg16", vgg16_path), ("res101_ms", res101_ms_path),
+             ("vgg16_train", vgg16_train_path),
+             ("res101_ms_train", res101_ms_train_path),
+             ("vgg16_scda", vgg16_scda_path))
+    only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
+    require(only is None or set(only) <= {n for n, _ in paths},
+            f"--only takes a comma-separated subset of {[n for n, _ in paths]}")
+    for name, fn in paths:
+        if only is not None and name not in only:
+            continue
         t0 = time.perf_counter()
         serving = name in ("vgg16", "res101_ms")
         with torch.no_grad() if serving else contextlib.nullcontext():
@@ -1419,6 +1719,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     require(not {"jax", "flax", "scda_tpu"} & set(sys.modules),
             "the port imported JAX or the JAX package")
+    if only is not None:   # a partial run proves nothing as a whole
+        print(smi, flush=True)
+        emit({"ok": False, "partial": only, "seconds": timings})
+        return 0
 
     sources = {
         "nms": ("scda_tpu_torch/csrc/nms.cu",

@@ -20,6 +20,9 @@ returns) into the port's state dict:
 With ``multiscale_roi`` params, ``c3_proj`` (which the reference lineage
 does not have, so the exporter leaves it out) maps to ``RCNN_c3_proj``.
 
+:func:`discriminator_state_dict_from_jax` does the same for the SCDA
+patch discriminator's flax tree (``conv1..3``, ``fc``).
+
 :func:`load_reference_checkpoint` loads a reference-layout ``.pth``
 (``{'model': state_dict}`` or a bare state dict) with
 ``weights_only=True``.
@@ -128,8 +131,22 @@ def state_dict_from_jax(params: Mapping[str, Any], backbone: str,
     return sd
 
 
-def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a reference-layout detector ``.pth`` into ``model``.
+def discriminator_state_dict_from_jax(
+        d_params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The flax ``PatchDiscriminator`` tree -> the state dict of
+    :class:`scda_tpu_torch.models.discriminator.PatchDiscriminator`."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("conv1", "conv2", "conv3"):
+        sd[f"{name}.weight"] = _conv(d_params[name]["kernel"])
+        sd[f"{name}.bias"] = _f32(d_params[name]["bias"])
+    sd["fc.weight"] = _linear(d_params["fc"]["kernel"])
+    sd["fc.bias"] = _f32(d_params["fc"]["bias"])
+    return sd
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str):
+    """Load a reference-layout detector ``.pth`` into ``model``; returns
+    the file's payload.
 
     ``weights_only=True``: such files come from outside this package and
     need nothing but tensors and dicts.  A ``module.`` prefix (saved from
@@ -142,3 +159,4 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items() if not k.endswith(".num_batches_tracked")}
     model.load_state_dict(sd)
+    return payload

@@ -1,22 +1,31 @@
-"""Training CLI of the PyTorch port: the source-only path of
-``scda_tpu/cli/trainval.py``.  Builds the detector, trains it with the
-supervised step (:mod:`scda_tpu_torch.train.steps`) on a dataset, logs
-metrics and writes checkpoints that ``cli/test_net.py --torch_checkpoint``
-evaluates.
+"""Training CLI of the PyTorch port (port of ``scda_tpu/cli/trainval.py``):
+source-only Faster R-CNN and SCDA adaptation.  Builds the detector,
+trains it with the supervised step (:mod:`scda_tpu_torch.train.steps`) or
+the adaptation step (:mod:`scda_tpu_torch.adapt.scda`), logs metrics and
+writes checkpoints that ``cli/test_net.py --load_dir`` evaluates.
 
     python -m scda_tpu_torch.cli.trainval --net vgg16 --dataset synthetic \
         --steps 100 --bs 1
     python -m scda_tpu_torch.cli.trainval --net res101 \
         --cfg_file cfgs/res101_ms.yml --dataset synthetic --steps 100
 
+SCDA: ``--adapt --target_dataset <name>`` (or ``adapt.enabled`` in a
+``--cfg_file``).  A second, unlabeled loader feeds the same step; the
+usual workflow adapts a source-pretrained detector:
+
+    python -m scda_tpu_torch.cli.trainval --net vgg16 --dataset synthetic \
+        --steps 100 --save_dir models/src
+    python -m scda_tpu_torch.cli.trainval --net vgg16 --dataset synthetic \
+        --adapt --init_from models/src/vgg16/synthetic --steps 100 \
+        --save_dir models/scda
+
 Flags follow the JAX CLI.  Where that CLI turns ``model.stem_pallas`` off
 for ``vgg16`` with ``train.freeze_pretrained_layers=false``, this one
 leaves the decision to ``train.steps.check_train_config``, which refuses
 the config (on the CPU, ``--set model.stem_pallas=false`` trains conv1 and
-conv2).  Not ported yet: SCDA adaptation (``--adapt``,
-ROADMAP.md item 10) and training on more than one device
-(``--num_devices``, item 12); both exit with code 2.  ``--profile DIR``
-writes a ``torch.profiler`` trace of steps 3-8.
+conv2).  Not ported yet: training on more than one device
+(``--num_devices``, ROADMAP.md item 12), which exits with code 2.
+``--profile DIR`` writes a ``torch.profiler`` trace of steps 3-8.
 """
 
 from __future__ import annotations
@@ -34,12 +43,17 @@ from scda_tpu_torch.cli.test_net import _NET_TO_BACKBONE, _NET_TO_PRESET
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="Train Faster R-CNN, source only (PyTorch)")
+        description="Train Faster R-CNN / SCDA (PyTorch)")
     p.add_argument("--dataset", default="synthetic",
                    help="registered dataset name, or 'synthetic'")
     p.add_argument("--net", default="vgg16", choices=sorted(_NET_TO_BACKBONE))
+    p.add_argument("--target_dataset", default=None,
+                   help="unlabeled target-domain dataset (SCDA): a "
+                        "registered name, 'dir:<path>' for a folder of "
+                        "images, or 'synthetic_foggy' (the default target "
+                        "of --adapt --dataset synthetic)")
     p.add_argument("--adapt", action="store_true",
-                   help="SCDA adaptation: not ported yet (exits 2)")
+                   help="SCDA adaptation training")
     p.add_argument("--bs", type=int, default=1, help="images per step")
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--epochs", type=int, default=None)
@@ -52,6 +66,10 @@ def parse_args(argv=None):
                    help="steps between checkpoints (0 = per epoch)")
     p.add_argument("--r", dest="resume", action="store_true",
                    help="resume from the latest checkpoint in save_dir")
+    p.add_argument("--init_from", default=None, metavar="DIR",
+                   help="initialise the detector (model and momentum) from "
+                        "the newest checkpoint in DIR and start at step 0: "
+                        "adapt a source-pretrained detector")
     p.add_argument("--torch_detector", default=None, metavar="PTH",
                    help="initialise the whole detector from a "
                         "reference-layout .pth (weights_only=True)")
@@ -69,9 +87,15 @@ def parse_args(argv=None):
     p.add_argument("--synth_images", type=int, default=16)
     p.add_argument("--synth_size", type=int, nargs=2, default=None,
                    metavar=("H", "W"))
+    p.add_argument("--synth_src_size", type=int, nargs=2, default=None,
+                   metavar=("H", "W"),
+                   help="scene size of the source fixture only (default: "
+                        "the canvas size)")
+    p.add_argument("--synth_fog", type=float, default=0.5,
+                   help="fog level of the synthetic_foggy target fixture")
     p.add_argument("--synth_classes", default=None,
                    help="comma-separated class list for the synthetic "
-                        "fixture")
+                        "fixtures (e.g. 'car' for the car-only protocol)")
     return p.parse_args(argv)
 
 
@@ -95,6 +119,8 @@ def build_config(args):
             cfg = replace_path(cfg, path, getattr(args, flag))
     cfg = replace_path(cfg, "train.batch_size", args.bs)
     cfg = replace_path(cfg, "train.seed", args.seed)
+    if args.adapt:
+        cfg = replace_path(cfg, "adapt.enabled", True)
     if args.synth_size:
         cfg = replace_path(cfg, "data.image_size", tuple(args.synth_size))
     overrides = parse_set_list(args.set_cfgs)
@@ -103,11 +129,26 @@ def build_config(args):
     return cfg
 
 
-def get_dataset(args, cfg):
-    if args.dataset != "synthetic":
+def target_name(args):
+    """The target dataset's name: ``--target_dataset``, or the foggy
+    fixture for ``--adapt --dataset synthetic``, else None."""
+    if args.target_dataset is None and args.adapt and args.dataset == "synthetic":
+        return "synthetic_foggy"
+    return args.target_dataset
+
+
+def get_dataset(args, cfg, name):
+    """Resolve a dataset name: ``synthetic`` / ``synthetic_foggy`` (the
+    fixtures, drawn on the fly), ``dir:<path>`` (a folder of images, for
+    the unlabeled target) or a registered name."""
+    if name.startswith("dir:"):
+        from scda_tpu_torch.data.voc import load_image_dir_dataset
+
+        return load_image_dir_dataset(name[4:], name=os.path.basename(name[4:]))
+    if name not in ("synthetic", "synthetic_foggy"):
         from scda_tpu_torch.data.voc import get_dataset as registered
 
-        return registered(args.dataset)
+        return registered(name)
     from scda_tpu_torch.data.synthetic import make_synthetic_dataset
 
     kw, suffix = {}, ""
@@ -115,18 +156,29 @@ def get_dataset(args, cfg):
         kw["classes"] = tuple(c.strip() for c in args.synth_classes.split(",")
                               if c.strip())
         suffix = f"_c{len(kw['classes'])}"
+    canvas = tuple(cfg.data.image_size)
+    if name == "synthetic_foggy":
+        return make_synthetic_dataset(
+            os.path.join(tempfile.gettempdir(),
+                         f"scda_synth_tgt_fog{args.synth_fog}{suffix}"),
+            num_images=args.synth_images, image_size=canvas, seed=1,
+            split="train", fog=args.synth_fog, name="synthetic_foggy", **kw)
+    size = tuple(args.synth_src_size) if args.synth_src_size else canvas
+    if size != canvas:
+        suffix += f"_s{size[0]}x{size[1]}"
     return make_synthetic_dataset(
         os.path.join(tempfile.gettempdir(), f"scda_synth_train{suffix}"),
-        num_images=args.synth_images, image_size=cfg.data.image_size,
+        num_images=args.synth_images, image_size=size,
         seed=0, split="train", **kw)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = build_config(args)
-    if args.adapt:
-        print("--adapt: SCDA adaptation is not ported to PyTorch yet "
-              "(ROADMAP.md item 10)", file=sys.stderr)
+    tgt_name = target_name(args)
+    if args.adapt and tgt_name is None:
+        print("--adapt requires --target_dataset (or --dataset synthetic)",
+              file=sys.stderr)
         return 2
     if args.num_devices > 1:
         print("--num_devices > 1: multi-device training is not ported to "
@@ -152,20 +204,26 @@ def main(argv=None) -> int:
     from scda_tpu_torch.train.steps import check_train_config, make_train_step
 
     check_train_config(cfg, device)
-    dataset = get_dataset(args, cfg)
+    dataset = get_dataset(args, cfg, args.dataset)
+    tgt_dataset = get_dataset(args, cfg, tgt_name) if tgt_name else None
     cfg = replace_path(cfg, "model.num_classes", dataset.num_classes)
     if (cfg.data.auto_canvas and not args.synth_size
-            and args.dataset != "synthetic"):
+            and not args.dataset.startswith("synthetic")):
         from scda_tpu_torch.data.pipeline import infer_canvas
 
-        canvas = infer_canvas(dataset.records, cfg.data)
+        # One canvas for both domains: they share the step's shapes.
+        records = list(dataset.records) + (
+            list(tgt_dataset.records) if tgt_dataset is not None else [])
+        canvas = infer_canvas(records, cfg.data)
         if canvas != tuple(cfg.data.image_size):
             print(f"canvas {tuple(cfg.data.image_size)} -> {canvas} "
                   f"(from record stats)")
             cfg = replace_path(cfg, "data.image_size", canvas)
     print(f"dataset={dataset.name} ({len(dataset)} images, "
           f"{dataset.num_classes - 1} fg classes), net={args.net}, "
-          f"device={device}")
+          f"device={device}, adapt={args.adapt}"
+          + (f", target={tgt_dataset.name} ({len(tgt_dataset)} images)"
+             if args.adapt else ""))
 
     # Seeded init with the first conv scaled to mean-subtracted 0-255
     # pixels, unless a whole detector is loaded.
@@ -181,16 +239,41 @@ def main(argv=None) -> int:
     steps_per_epoch = len(loader)
     total_steps = args.steps or steps_per_epoch * cfg.train.max_epochs
     state = create_train_state(cfg, model, steps_per_epoch)
-    step_fn = make_train_step(model, cfg)
+    if args.init_from:
+        ckpt.restore_checkpoint(args.init_from, state)
+        state.step = 0          # adaptation starts its own schedule
+        print(f"detector initialised from {args.init_from}")
+    tgt_iter = None
+    if args.adapt:
+        from scda_tpu_torch.adapt.scda import (
+            create_scda_state, init_discriminator, make_scda_train_step,
+        )
+
+        d_model = init_discriminator(
+            cfg, torch.Generator().manual_seed(cfg.train.seed + 1), device)
+        state = create_scda_state(cfg, state, d_model)
+        step_fn = make_scda_train_step(model, d_model, cfg)
+        tgt_loader = DataLoader(tgt_dataset, cfg.data, args.bs,
+                                seed=cfg.train.seed + 7)
+        tgt_iter = iter(tgt_loader.repeat())
+    else:
+        step_fn = make_train_step(model, cfg)
 
     save_dir = os.path.join(args.save_dir, args.net, dataset.name)
     os.makedirs(save_dir, exist_ok=True)
     with open(os.path.join(save_dir, "config.json"), "w") as f:
         json.dump({"config": dataclasses.asdict(cfg),
-                   "classes": list(dataset.classes), "state_kind": "det"},
+                   "classes": list(dataset.classes),
+                   # The checkpoints' layout: "scda" ones also hold the
+                   # discriminator and its momentum.
+                   "state_kind": "scda" if args.adapt else "det"},
                   f, indent=1)
     if args.resume and ckpt.latest_step(save_dir) is not None:
         ckpt.restore_checkpoint(save_dir, state)
+        # The loaders too stand where the checkpointed run left them.
+        loader.fast_forward(state.step)
+        if args.adapt:
+            tgt_loader.fast_forward(state.step)
         print(f"resumed from step {state.step}")
 
     logger = MetricsLogger(log_file=os.path.join(save_dir, "metrics.jsonl"))
@@ -205,6 +288,10 @@ def main(argv=None) -> int:
                 break
             tensors = [torch.from_numpy(a).to(device) for a in (
                 batch.image, batch.im_info, batch.gt_boxes, batch.num_boxes)]
+            if tgt_iter is not None:
+                tb = next(tgt_iter)
+                tensors += [torch.from_numpy(a).to(device)
+                            for a in (tb.image, tb.im_info)]
             state, metrics = step_fn(state, *tensors)
             step = state.step
             if args.profile and step == 3:

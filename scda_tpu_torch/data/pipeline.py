@@ -453,6 +453,7 @@ class DataLoader:
             cfg.use_flipped if augment_flip is None else augment_flip
         )
         self.rng = np.random.RandomState(seed)
+        self._skip = 0     # batches to drop from the next epoch's start
         self.prefetch = max(prefetch, 1)
         self.num_workers = (cfg.num_workers if num_workers is None
                             else num_workers)
@@ -574,7 +575,9 @@ class DataLoader:
                 )
         return _collate(examples, indices)
 
-    def __iter__(self) -> Iterator[Batch]:
+    def _epoch_plan(self):
+        """(batches, flips) of the next epoch: every draw it takes from
+        ``self.rng``, and no image loaded."""
         batches = self._epoch_batches()
         # Deterministic per-epoch flip stream, independent of workers.
         flips = [
@@ -582,6 +585,21 @@ class DataLoader:
             if self.augment_flip else np.zeros(len(b), bool)
             for b in batches
         ]
+        return batches, flips
+
+    def fast_forward(self, num_batches: int) -> None:
+        """Put the loader where it stands after yielding ``num_batches``
+        batches from its start (a resumed run then sees the batches an
+        uninterrupted one would): whole epochs are drawn and dropped,
+        and the next epoch starts past the remainder, loading nothing."""
+        for _ in range(num_batches // len(self)):
+            self._epoch_plan()
+        self._skip = num_batches % len(self)
+
+    def __iter__(self) -> Iterator[Batch]:
+        batches, flips = self._epoch_plan()
+        skip, self._skip = self._skip, 0
+        batches, flips = batches[skip:], flips[skip:]
 
         if self.num_workers <= 0:
             # Single background prefetch thread (or fully synchronous).

@@ -7,12 +7,14 @@ float32; the modules compute in ``model.compute_dtype``.
 
 The step's randomness comes from three ``torch.Generator``\\ s seeded from
 (seed, step) alone, as JAX folds the step into its base key, so a resumed
-run needs no hidden RNG state.
+run needs no hidden RNG state.  The SCDA step
+(:mod:`scda_tpu_torch.adapt.scda`) draws two more streams from the same
+pair.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +55,24 @@ def step_generators(seed: int, step: int, device) -> StepGenerators:
     seeds = np.random.SeedSequence([seed, step]).generate_state(3)
     return StepGenerators(*(torch.Generator(device=device).manual_seed(int(s))
                             for s in seeds))
+
+
+class ScdaGenerators(NamedTuple):
+    """The SCDA step's randomness: the detection forward's three streams
+    and one k-means init stream per domain."""
+
+    det: StepGenerators
+    mine_src: torch.Generator
+    mine_tgt: torch.Generator
+
+
+def scda_step_generators(seed: int, step: int, device) -> ScdaGenerators:
+    """:func:`step_generators`' three streams (the same ones: a seed
+    sequence's words are prefix-stable) and two more for the k-means
+    inits of source and target mining."""
+    seeds = np.random.SeedSequence([seed, step]).generate_state(5)
+    gens = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+    return ScdaGenerators(StepGenerators(*gens[:3]), gens[3], gens[4])
 
 
 def make_train_step(model: FasterRCNN, cfg: Config):

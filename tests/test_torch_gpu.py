@@ -477,3 +477,174 @@ def test_wrapper_refuses_to_drop_a_gradient_on_card(cuda, wrapper):
         call()
     with torch.no_grad():
         call()
+
+
+def _mined_rois(r, kind, h=32, w=64, stride=16.0):
+    """(2, r, 4) rois in image coordinates on an (h, w) stride-16 map:
+    ``map_sized`` regions spanning a third to all of the map, ``zeroed``
+    ones (an invalid group's box), or both."""
+    rng = np.random.RandomState(r)
+    x1 = rng.rand(2, r) * 0.3 * w * stride
+    y1 = rng.rand(2, r) * 0.3 * h * stride
+    x2 = x1 + (0.35 + 0.65 * rng.rand(2, r)) * (w * stride - x1)
+    y2 = y1 + (0.35 + 0.65 * rng.rand(2, r)) * (h * stride - y1)
+    rois = np.stack([x1, y1, x2, y2], -1).astype(np.float32)
+    if kind == "zeroed":
+        rois[:] = 0.0
+    elif kind == "mixed":
+        rois[:, ::2] = 0.0
+    return torch.from_numpy(rois)
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["map_sized", "zeroed", "mixed"])
+@pytest.mark.parametrize("r", [9, 1])
+def test_roi_align_kernels_on_mined_regions(cuda, feat_dtype, kind, r):
+    """K2 forward and backward on what SCDA's mining gives them: few
+    (R = 9 or 1) map-sized rois per image, whose bins are many pixels
+    wide, and the zeroed boxes of invalid groups (a 1x1 roi at the map's
+    origin).  P = 7, C = 512 on a (2, 32, 64) map; forward f32 at 1e-5,
+    bf16 rtol 1e-2 atol 1e-3; backward f32 at 1e-5 of the largest
+    |dfeat|, bf16 within 2 ulps.  No row has more than 4 taps
+    (``sampling_ratio`` 2), so the unrolled path runs."""
+    from scda_tpu_torch.ops import roi_ops
+
+    h, w, c, p = 32, 64, 512, 7
+    g = torch.Generator(device=cuda).manual_seed(r)
+    feat = torch.randn((2, h, w, c), generator=g, device=cuda).to(feat_dtype)
+    rois = _mined_rois(r, kind).to(cuda)
+    wy, wx = roi_ops.roi_align_axis_weights(rois, h, w, output_size=p)
+    assert int((wy != 0).sum(-1).max()) <= 4 >= int((wx != 0).sum(-1).max())
+    out = roi_align_kernel.roi_align_contract(wy, wx, feat)
+    ref = roi_align_kernel.roi_align_contract_plain(wy, wx, feat)
+    rtol, atol = (1e-5, 1e-5) if feat_dtype == torch.float32 else (1e-2, 1e-3)
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    assert bool(torch.isfinite(out).all())
+
+    cot = torch.randn((2, r, p, p, c), generator=g, device=cuda)
+    d = roi_align_kernel.roi_align_contract_bwd(wy, wx, cot, h, w, feat_dtype)
+    d_ref = roi_align_kernel.roi_align_contract_bwd_plain(wy, wx, cot,
+                                                          feat_dtype)
+    assert bool(torch.isfinite(d).all())
+    if feat_dtype == torch.float32:
+        torch.testing.assert_close(d, d_ref, rtol=1e-5,
+                                   atol=1e-5 * d_ref.abs().max().item())
+    else:
+        d_ref = d_ref.float()
+        assert bool(((d.float() - d_ref).abs() <= 2 * _bf16_ulp(d_ref)).all())
+    if kind == "zeroed":   # only the pixels around the origin are touched
+        assert float(d[:, 2:].abs().max()) == 0.0
+        assert float(d[:, :, 2:].abs().max()) == 0.0
+
+
+def test_three_roi_align_backwards_accumulate_into_two_maps(cuda):
+    """The SCDA step's shape: two poolings differentiate one map (the
+    sampled rois and the source regions), a third another map.  Each
+    backward launches once with its own zeroed buffer and autograd adds
+    the two; a zero-weight region contributes exactly 0."""
+    from scda_tpu_torch.ops import roi_ops
+
+    h, w, c = 32, 64, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+    src = torch.randn((2, h, w, c), generator=g, device=cuda).requires_grad_()
+    tgt = torch.randn((2, h, w, c), generator=g, device=cuda).requires_grad_()
+    rois = torch.from_numpy(_boxes(np.random.RandomState(1), 2, 16,
+                                   spread=700.0)).to(cuda)
+    regions = _mined_rois(9, "mixed").to(cuda)
+    weight = (regions[..., 2] > 0).float()              # zeroed boxes: 0
+    before = roi_align_kernel.roi_align_contract_bwd.launches
+
+    def loss(pool, f_src, f_tgt):
+        a = pool(f_src, rois).square().sum()
+        b = (pool(f_src, regions).square().sum((2, 3, 4)) * weight).sum()
+        c_ = (pool(f_tgt, regions).sum((2, 3, 4)) * weight).sum()
+        return a + b + c_
+
+    loss(lambda f, r: roi_ops.roi_align_grouped(f, r, output_size=7),
+         src, tgt).backward()
+    assert roi_align_kernel.roi_align_contract_bwd.launches == before + 3
+
+    def plain(f, r):
+        wy, wx = roi_ops.roi_align_axis_weights(r, h, w, output_size=7)
+        return roi_align_kernel.roi_align_contract_plain(wy, wx, f)
+
+    src_p = src.detach().clone().requires_grad_()
+    tgt_p = tgt.detach().clone().requires_grad_()
+    loss(plain, src_p, tgt_p).backward()
+    for got, want in ((src.grad, src_p.grad), (tgt.grad, tgt_p.grad)):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+    # The target map is reached by the valid regions alone: its origin
+    # pixel, which only zeroed boxes pool, has no gradient at all.
+    valid_x1 = regions[..., 0][weight > 0].min() / 16.0
+    if float(valid_x1) > 2.0:
+        assert float(tgt.grad[:, :, 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d_update", ["joint", "alternating"])
+def test_scda_step_on_card_matches_cpu(cuda, d_update):
+    """One f32 SCDA step on ``tiny`` on the card (kernels) against the
+    same step on the CPU (twins), same seeds: metrics at rtol 1e-4, and
+    the launches of one step: K1 2, K2 3 forward and 3 backward."""
+    from scda_tpu_torch.adapt import scda
+    from scda_tpu_torch.config import get_config, replace_path
+    from scda_tpu_torch.models.faster_rcnn import build_model
+    from scda_tpu_torch.train.state import create_train_state
+
+    cfg = get_config("vgg16")
+    for path, value in (("model.backbone", "tiny"), ("model.num_classes", 5),
+                        ("model.compute_dtype", "float32"),
+                        ("model.rpn_channels", 64),
+                        ("data.image_size", (128, 192)),
+                        ("anchors.scales", (2.0, 4.0, 8.0)),
+                        ("train.proposal.pre_nms_top_n", 256),
+                        ("train.proposal.post_nms_top_n", 64),
+                        ("train.rpn_target.batch_size", 64),
+                        ("train.roi_target.batch_size", 32),
+                        ("adapt.enabled", True), ("adapt.num_groups", 4),
+                        ("adapt.mining_top_n", 32), ("adapt.d_channels", 16),
+                        ("adapt.d_update", d_update)):
+        cfg = replace_path(cfg, path, value)
+    rng = np.random.RandomState(0)
+    gt = np.zeros((2, 8, 5), np.float32)
+    gt[:, 0] = [20.0, 30.0, 90.0, 100.0, 2.0]
+    gt[:, 1] = [100.0, 20.0, 170.0, 90.0, 1.0]
+    info = np.tile(np.array([[128, 192, 1.0]], np.float32), (2, 1))
+    batch = [rng.randn(2, 128, 192, 3).astype(np.float32), info, gt,
+             np.full(2, 2, np.int32), rng.randn(2, 128, 192, 3).astype(
+                 np.float32) + 0.5, info]
+
+    wrappers = (nms_kernel.nms_sorted, roi_align_kernel.roi_align_contract,
+                roi_align_kernel.roi_align_contract_bwd)
+    metrics = {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg.model, cfg.anchors.num_anchors,
+                            generator=torch.Generator().manual_seed(1),
+                            device=device)
+        d_model = scda.init_discriminator(
+            cfg, torch.Generator().manual_seed(2), device)
+        state = scda.create_scda_state(cfg, create_train_state(cfg, model),
+                                       d_model)
+        step = scda.make_scda_train_step(model, d_model, cfg)
+        before = [w.launches for w in wrappers]
+        # Uniforms and Gumbel noise drawn on the CPU for both devices:
+        # the two devices' generators give different streams.
+        torch.manual_seed(3)
+        draws = {"anchor": torch.rand(2, 2, 8 * 12 * 9).to(device),
+                 "roi": torch.rand(2, 2, 64 + 8).to(device)}
+        for name in ("mine_src", "mine_tgt"):
+            e = -torch.log(torch.rand(2, 3 + 1, 32).clamp_min(1e-20))
+            gum = (-torch.log(e)).to(device)
+            draws[name] = {"g0": gum[:, 0], "gs": gum[:, 1:]}
+        _, m = step(state, *(torch.from_numpy(a).to(device) for a in batch),
+                    draws=draws)
+        metrics[str(device)] = {k: float(v) for k, v in m.items()}
+        if device != "cpu":
+            assert [w.launches - b for w, b in zip(wrappers, before)] == [
+                2, 3, 3]
+        assert state.step == 1
+    cpu, card = metrics["cpu"], metrics[str(cuda)]
+    assert set(cpu) == set(card) and "adv" in cpu
+    for k, v in cpu.items():
+        np.testing.assert_allclose(card[k], v, rtol=1e-4, err_msg=k)

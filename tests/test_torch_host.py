@@ -215,6 +215,31 @@ def test_memory_dataset_loader_and_eval_equal(tmp_path):
             == tcoco.evaluate_coco_protocol(ds_b, dets))
 
 
+@pytest.mark.parametrize("done", [0, 1, 2, 3, 5])
+def test_loader_fast_forward_resumes_the_batch_stream(tmp_path, done):
+    """A fresh loader fast-forwarded by ``done`` batches yields what an
+    uninterrupted one yields from there on (within an epoch and across
+    epoch boundaries: 2 batches per epoch), so a resumed run trains on
+    the batches it would have seen."""
+    ds = tsynth.make_memory_dataset(num_images=5, image_size=(128, 192),
+                                    tmpdir=str(tmp_path))
+    cfg = tcfg.DataConfig(scale=128, max_size=224, image_size=(128, 192),
+                          max_gt_boxes=8)
+
+    def stream(loader, n):
+        it = iter(loader.repeat())
+        return [next(it) for _ in range(n)]
+
+    straight = stream(tpipe.DataLoader(ds, cfg, batch_size=2, seed=4), 7)
+    resumed = tpipe.DataLoader(ds, cfg, batch_size=2, seed=4)
+    assert len(resumed) == 2
+    resumed.fast_forward(done)
+    for a, b in zip(straight[done:], stream(resumed, 7 - done)):
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.image, b.image)
+        np.testing.assert_array_equal(a.gt_boxes, b.gt_boxes)
+
+
 def test_dataset_registry_lists_the_same_names():
     names = tvoc.list_datasets()
     assert names == jvoc.list_datasets() and len(names) > 10

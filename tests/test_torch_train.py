@@ -443,12 +443,17 @@ def test_cli_trains_and_test_net_evaluates(tmp_path):
     assert rc == 0
 
 
-@pytest.mark.parametrize("argv", [["--adapt"], ["--num_devices", "2"]])
-def test_cli_refuses_what_is_not_ported(argv, capsys):
+@pytest.mark.parametrize("argv, why", [
+    # --adapt is ported; without a target to adapt to it still exits 2.
+    pytest.param(["--adapt", "--dataset", "cityscapes_train"],
+                 "requires --target_dataset", id="argv0"),
+    pytest.param(["--num_devices", "2"], "ROADMAP", id="argv1"),
+])
+def test_cli_refuses_what_is_not_ported(argv, why, capsys):
     from scda_tpu_torch.cli import trainval
 
     assert trainval.main(["--device", "cpu", *argv]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert why in capsys.readouterr().err
 
 
 def test_train_path_imports_no_jax(tmp_path):

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving, training and adaptation paths through its entry points,
-with seeded random weights, and checks its five CUDA kernels:
+Drives the port's serving, training and adaptation paths and its other
+entry points (demo, evaluation, data parallelism), with seeded random
+weights, and checks its five CUDA kernels:
 
   * VGG16 Faster R-CNN (BASELINE config #1): 512x1024 canvas, proposals
     6000 -> 300 when serving, 12000 -> 2000 when training, 9 classes;
@@ -53,12 +54,26 @@ non-zero:
      twins with times and bounds; one f32 joint step's gradients of
      detector and discriminator with the kernels against the twins', its
      metrics against the same step on the CPU, and the mining's k-means
-     on the card against the CPU on the same proposals.
+     on the card against the CPU on the same proposals;
+  7. surface — the rest of the port's entry points on VGG16 at full width
+     with the seeded serving weights, written as a checkpoint with its
+     ``config.json``: ``cli/demo.py`` on two fixture frames saved as PNGs
+     (overlays written; detections equal to ``forward_inference`` on the
+     same canvases), ``pooling_mode`` ``pool`` and ``crop`` serving (bf16
+     img/s; no K2 launch; the f32 run against the CPU on 4 frames),
+     ``cli/test_net.py --use_07_metric --iou_sweep --coco_protocol
+     --vis`` on 8 frames, and ``parallel/mesh.py`` at world size 1 with
+     NCCL (one f32 step at bs 2 against the plain step: gradients within
+     1e-4 of each norm; three bf16 steps each, img/s).
+
+The ``slice`` and ``train`` lines carry ``model_flops_per_image``
+(``utils/flops.py``) and ``mfu``, img/s times those FLOPs over the bf16
+peak: a yardstick that gates nothing.
 
 The last lines are the ``nvidia-smi`` line, the kernels summary and
 ``{"ok": true, "device": {...}}``.  While working on one path,
 ``python3 chip_smoke.py --only vgg16_scda`` (a comma-separated subset of
-``vgg16,res101_ms,vgg16_train,res101_ms_train,vgg16_scda``) runs just
+``vgg16,res101_ms,vgg16_train,res101_ms_train,vgg16_scda,vgg16_surface``) runs just
 that and ends with ``{"ok": false, "partial": [...]}``: only the run
 with no arguments is the check.  It imports nothing of JAX and nothing
 of the JAX package.
@@ -89,6 +104,9 @@ TARGET_FOG = 0.5             # the training CLI's default fog level
 # Proposals that may change group between the card's k-means and the
 # CPU's (summation order at a near-tie), as a share of the valid ones.
 MINING_DIFF_SHARE = 0.01
+SURFACE_REPEATS = 2
+DDP_STEPS = 5
+DDP_GRAD_TOL = 1e-4
 # The gradient check's plain swap (see ``Port.grad_check``).
 FWD_GAP = 1e-5
 PERTURB = 1e-6
@@ -373,10 +391,14 @@ class Port:
         from scda_tpu_torch.ops.kernels import (
             bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel,
         )
+        from scda_tpu_torch.cli import demo, test_net
+        from scda_tpu_torch.parallel import mesh
+        from scda_tpu_torch.train import steps
         from scda_tpu_torch.train.state import create_train_state
         from scda_tpu_torch.train.steps import (
             ScdaGenerators, make_train_step, step_generators,
         )
+        from scda_tpu_torch.utils import flops
 
         self.torch = torch
         self.get_config, self.replace_path = get_config, replace_path
@@ -391,6 +413,8 @@ class Port:
         self.detector, self.resnet, self.vgg = detector, resnet, vgg
         self.build_model, self.init_weights = build_model, init_weights
         self.nms, self.roi_ops = nms, roi_ops
+        self.demo, self.test_net, self.mesh = demo, test_net, mesh
+        self.steps, self.flops = steps, flops
         self.bk, self.nk, self.rk, self.sk = (
             bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel)
         self.wrappers = {"nms": nms_kernel.nms_sorted,
@@ -458,6 +482,8 @@ class Port:
         emit({"phase": "slice", "path": path, "dtype": "bfloat16",
               "batch_size": 1, "frames": len(images), "repeats": repeats,
               "img_per_s_median": median(rates), "img_per_s": rates,
+              **self.mfu(self.flops.inference_flops_per_image(cfg, CANVAS),
+                         median(rates)),
               "launches": launches, **dets_info,
               "peak_mem_bytes": torch.cuda.max_memory_allocated()})
         self.profile_pass(
@@ -465,6 +491,14 @@ class Port:
                      for im, inf in zip(images, infos)],
             len(images), path, 1e3 / median(rates))
         return launches
+
+    @staticmethod
+    def mfu(flops_per_image, img_per_s):
+        """The model FLOPs per image (``utils/flops.py``, the JAX
+        package's count) and the share of the card's bf16 peak that
+        ``img_per_s`` of them make: a yardstick, it gates nothing."""
+        return {"model_flops_per_image": flops_per_image,
+                "mfu": img_per_s * flops_per_image / PEAK_BF16_FLOPS}
 
     def profile_pass(self, run, units, path, wall_ms_per_unit):
         """One ``torch.profiler`` pass over ``run()`` (``units`` images or
@@ -826,6 +860,10 @@ class Port:
               "img_per_s_unit": "source images",
               "warmup_steps": warmup, "timed_steps": steps,
               "img_per_s_median": median(rates), "img_per_s": rates,
+              **self.mfu((self.flops.scda_step_flops_per_src_image
+                          if tgt_batches else
+                          self.flops.train_flops_per_image)(cfg, CANVAS),
+                         median(rates)),
               "losses": losses,
               "fixed_batch_total": {"before": before["loss"],
                                     "after": after["loss"]},
@@ -1653,6 +1691,312 @@ def vgg16_scda_path(port, device, frames):
     return summary, launches
 
 
+def surface_run_dir(port, cfg16, state, root):
+    """The serving weights as a port checkpoint (step 0) with the
+    ``config.json`` that ``trainval`` writes beside it: what ``demo`` and
+    ``test_net --load_dir`` read.  Returns ``<root>/vgg16/synthetic``."""
+    import dataclasses
+
+    from scda_tpu_torch.data.voc import CITYSCAPES_CLASSES
+
+    torch = port.torch
+    run_dir = os.path.join(root, "vgg16", "synthetic")
+    os.makedirs(run_dir)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump({"config": dataclasses.asdict(cfg16),
+                   "classes": list(CITYSCAPES_CLASSES), "state_kind": "det"}, f)
+    torch.save({"step": 0, "model": state},
+               os.path.join(run_dir, "ckpt_00000000.pth"))
+    return run_dir
+
+
+def launch_counts(port):
+    return {k: w.launches for k, w in port.wrappers.items()}
+
+
+def delta(port, before, want, what):
+    """The launches since ``before``, required to be ``want``."""
+    now = launch_counts(port)
+    got = {k: now[k] - before[k] for k in now}
+    require(got == want, f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def surface_demo(port, device, cfg16, state, root, tmp):
+    """(a) ``demo.main`` on two fixture frames written as PNGs, reading the
+    checkpoint and ``config.json`` of ``root``: an overlay per frame, and
+    detections equal to ``forward_inference`` on the same canvases."""
+    import numpy as np
+    from PIL import Image
+
+    from scda_tpu_torch.data.pipeline import prepare_image
+    from scda_tpu_torch.data.synthetic import SYNTH_CLASSES, _draw_scene
+
+    torch = port.torch
+    images_dir, out_dir = os.path.join(tmp, "images"), os.path.join(tmp, "det")
+    os.makedirs(images_dir)
+    rng = np.random.RandomState(5)
+    bgr = []
+    for i in range(2):
+        rgb, _, _ = _draw_scene(rng, 1024, 2048, max_objects=8,
+                                classes=SYNTH_CLASSES)
+        Image.fromarray(rgb).save(os.path.join(images_dir, f"frame{i}.png"))
+        bgr.append(np.ascontiguousarray(rgb[:, :, ::-1]).astype(np.float32))
+    t0 = time.perf_counter()
+    with Recorder(port.steps, "forward_inference") as rec:
+        rc = port.demo.main(["--image_dir", images_dir, "--out_dir", out_dir,
+                             "--net", "vgg16", "--load_dir", root,
+                             "--thresh", "0.0", "--device", str(device),
+                             "--set", "data.image_size={},{}".format(*CANVAS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(rc == 0 and len(rec.calls) == 2, f"demo: rc {rc}, "
+            f"{len(rec.calls)} forwards")
+    overlays = sorted(os.listdir(out_dir))
+    require(overlays == ["frame0_det.png", "frame1_det.png"],
+            f"demo overlays: {overlays}")
+    # The reference: the same weights and config, built here; canvases
+    # from the same frames through the port's host prep.
+    cfg = rec.calls[0][0][3]
+    model = port.build_model(cfg.model, cfg.anchors.num_anchors, device="cpu")
+    model.load_state_dict(state)
+    model = model.to(device)
+    frames_out = []
+    for (args, _), got, img in zip(rec.calls, rec.results, bgr):
+        canvas, scale, (vh, vw) = prepare_image(img, cfg.data)
+        image = torch.from_numpy(canvas[None]).to(device)
+        info = torch.tensor([[vh, vw, scale]], device=device)
+        require(torch.equal(args[1], image) and torch.equal(args[2], info),
+                "demo: its canvas is not the host prep's")
+        with torch.no_grad():
+            ref = port.detector.forward_inference(model, image, info, cfg)
+        rate, n_demo, n_ref = port.detection_match_rate(got, ref)
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+        frames_out.append({"match_rate": rate, "demo_dets": n_demo,
+                           "forward_dets": n_ref, "bit_equal": bit_equal})
+        require(rate == 1.0 and n_ref >= 1,
+                f"demo: detections differ from forward_inference: {frames_out}")
+    emit({"phase": "surface_demo", "path": "vgg16_surface",
+          "canvas": list(cfg.data.image_size), "frames": frames_out,
+          "overlays": overlays, "seconds": seconds,
+          "compute_dtype": cfg.model.compute_dtype})
+
+
+def surface_pooling(port, device, state, images, infos, frames, mode):
+    """(b) bf16 serving with ``pooling_mode`` ``pool`` or ``crop`` (a
+    gather, not K2): img/s, then the f32 run on the card against the
+    CPU on 4 frames under the ``slice_vs_cpu`` gate."""
+    torch = port.torch
+    cfg32, cfg16 = port.serving_cfgs("vgg16", pooling_mode=mode)
+    model16 = port.build_model(cfg16.model, cfg16.anchors.num_anchors,
+                               device=device)
+    model16.load_state_dict(state)
+    port.bf16_inference_params(model16)
+    with Recorder(port.roi_ops, "roi_align_contract") as rec:
+        with torch.no_grad():
+            port.detector.forward_inference(model16, images[0], infos[0], cfg16)
+    require(not rec.calls, f"{mode}: pooling went through K2")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        rates, _, dets = port.serve(model16, cfg16, images, infos,
+                                    SURFACE_REPEATS)
+    emit({"phase": "slice", "path": f"vgg16_{mode}", "dtype": "bfloat16",
+          "batch_size": 1, "frames": len(images), "repeats": SURFACE_REPEATS,
+          "img_per_s_median": median(rates), "img_per_s": rates,
+          **port.mfu(port.flops.inference_flops_per_image(cfg16, CANVAS),
+                     median(rates)),
+          **dets, "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    with torch.no_grad():
+        port.profile_pass(
+            lambda: [port.detector.forward_inference(model16, im, inf, cfg16)
+                     for im, inf in zip(images, infos)],
+            len(images), f"vgg16_{mode}", 1e3 / median(rates))
+    del model16
+    model32 = port.build_model(cfg32.model, cfg32.anchors.num_anchors,
+                               device=device)
+    model32.load_state_dict(state)
+    with torch.no_grad():
+        rates32, outs32, dets32 = port.serve(model32, cfg32, images[:4],
+                                             infos[:4], 1)
+        emit({"phase": "slice", "path": f"vgg16_{mode}", "dtype": "float32",
+              "tf32": False, "batch_size": 1, "frames": 4,
+              "img_per_s": rates32, **dets32})
+        port.vs_cpu(cfg32, state, frames[0], frames[1], outs32, 4,
+                    f"vgg16_{mode}")
+
+
+def surface_test_net(port, device, root, tmp):
+    """(c) ``test_net --use_07_metric --iou_sweep --coco_protocol --vis``
+    on the 8 fixture frames at 512x1024 with the run of ``root``.  With
+    random weights the numbers only show that the path runs."""
+    import contextlib
+    import io
+
+    vis = os.path.join(tmp, "vis")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = port.test_net.main([
+            "--net", "vgg16", "--dataset", "synthetic", "--synth_images",
+            str(N_FRAMES), "--synth_size", *map(str, CANVAS), "--load_dir",
+            root, "--use_07_metric", "--iou_sweep", "--coco_protocol",
+            "--vis", vis, "--device", str(device)])
+    seconds = time.perf_counter() - t0
+    lines = {}
+    for line in out.getvalue().splitlines():
+        if line.startswith("{"):
+            lines.update(json.loads(line))
+    require(rc == 0 and {"eval", "iou_sweep", "coco"} <= set(lines),
+            f"test_net: rc {rc}, printed {sorted(lines)}")
+    overlays = sorted(os.listdir(vis))
+    require(len(overlays) == N_FRAMES, f"test_net --vis wrote {overlays}")
+    emit({"phase": "surface_test_net", "path": "vgg16_surface",
+          "flags": ["--use_07_metric", "--iou_sweep", "--coco_protocol",
+                    "--vis"], "seconds": seconds, "overlays": len(overlays),
+          "note": "random weights: the numbers show that the path runs",
+          **{k: lines[k] for k in ("eval", "iou_sweep", "coco")}})
+
+
+def surface_data_parallel(port, device, frames, tmp):
+    """(d) ``parallel/mesh.py`` at world size 1 with NCCL: one f32 VGG16
+    step at bs 2 through the data-parallel step against the plain step,
+    from the same weights on the same batch (the same draws: a row shard
+    of one rank is the whole draw).  The forward is the same; K2's
+    backward sums with ``atomicAdd`` in no fixed order (and cuDNN's
+    backward may too), so the gradients are held to 1e-4 of each
+    tensor's norm (``DDP_GRAD_TOL``), the losses to rtol 1e-5.  Then
+    ``DDP_STEPS`` bf16 steps each, img/s side by side."""
+    torch = port.torch
+    cfg32, cfg16 = port.train_cfgs("vgg16", 2)
+    batch = port.train_batches(frames, 2, device)[0]
+    world = port.mesh.init_world(
+        0, 1, "file://" + os.path.join(tmp, "rendezvous"), device)
+    backend = torch.distributed.get_backend()
+    try:
+        grads, losses = {}, {}
+        for label, w in (("plain", None), ("world1", world)):
+            model = port.train_model(cfg32, device)
+            state = port.create_train_state(cfg32, model)
+            seen = {}
+
+            def capture(g, apply=state.apply_gradients, seen=seen):
+                seen.update({k: v.detach().clone() for k, v in g.items()})
+                apply(g)
+
+            state.apply_gradients = capture
+            step = port.steps.make_train_step(model, cfg32, w)
+            _, metrics = step(state, *batch)
+            grads[label], losses[label] = seen, {
+                k: float(v) for k, v in metrics.items()}
+            del model, state
+        gaps = {n: float((grads["world1"][n] - g).norm()
+                         / g.norm().clamp_min(1e-30))
+                for n, g in grads["plain"].items()}
+        worst = max(gaps, key=gaps.get)
+        loss_ok = all(abs(losses["world1"][k] - v) <= 1e-5 * max(abs(v), 1.0)
+                      for k, v in losses["plain"].items())
+        moved = sum(bool(grads["plain"][n].abs().sum() > 0) for n in gaps)
+        # The step's one bucketed all-reduce on the f32 gradients alone,
+        # and the flattening copy inside it.
+        bucket = list(grads["plain"].values())
+        bucket_bytes = nbytes(*bucket)
+        reduce_ms = time_ms(torch, lambda: world.sum_tensors(bucket), 5)
+        cat_ms = time_ms(torch, lambda: torch.cat(
+            [t.reshape(-1) for t in bucket]), 5)
+        del grads, bucket
+        rates = {}
+        for label, w in (("plain", None), ("world1", world)):
+            model = port.train_model(cfg16, device)
+            state = port.create_train_state(cfg16, model)
+            step = port.steps.make_train_step(model, cfg16, w)
+            step(state, *batch)
+            rates[label] = []
+            for _ in range(DDP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, *batch)
+                torch.cuda.synchronize()
+                rates[label].append(2 / (time.perf_counter() - t0))
+            del model, state
+    finally:
+        port.mesh.close_world()
+    emit({"phase": "surface_data_parallel", "path": "vgg16_surface",
+          "backend": backend, "world_size": 1, "batch_size": 2,
+          "f32_grad_max_rel_gap": gaps[worst], "f32_grad_worst": worst,
+          "grad_tolerance": DDP_GRAD_TOL, "tensors": len(gaps),
+          "nonzero_grads": moved, "losses": losses,
+          "bucket_bytes": bucket_bytes, "bucket_all_reduce_ms": reduce_ms,
+          "bucket_cat_ms": cat_ms,
+          "bf16_img_per_s": rates,
+          "bf16_img_per_s_median": {k: median(v) for k, v in rates.items()},
+          **port.mfu(port.flops.train_flops_per_image(cfg16, CANVAS),
+                     median(rates["world1"]))})
+    require(gaps[worst] <= DDP_GRAD_TOL,
+            f"world-1 step: gradient {worst} off by {gaps[worst]} of its norm")
+    require(loss_ok, f"world-1 step: losses {losses}")
+    require(moved >= len(gaps) // 2, f"world-1 step: {moved} nonzero grads")
+
+
+def vgg16_surface_path(port, device, frames):
+    """The rest of the port's surface on VGG16 at 512x1024, full width and
+    depth, seeded serving weights: (a) the demo, (b) ``pool`` and
+    ``crop`` serving, (c) ``test_net`` with its evaluation and overlay
+    flags, (d) the data-parallel step at world size 1 with NCCL.  Every
+    launch count is set to 0 before (a) and read after (d); each phase's
+    share is checked (``pool`` and ``crop`` launch no K2)."""
+    import shutil
+    import tempfile
+
+    torch = port.torch
+    cfg32, cfg16 = port.serving_cfgs("vgg16")
+    model = port.build_model(cfg32.model, cfg32.anchors.num_anchors,
+                             device="cpu")
+    port.init_weights(model, torch.Generator().manual_seed(0),
+                      input_scale=1.0 / 64, he_heads=True)
+    state = model.state_dict()
+    del model
+    images = [torch.from_numpy(x).to(device) for x in frames[0]]
+    infos = [torch.from_numpy(x).to(device) for x in frames[1]]
+    tmp = tempfile.mkdtemp(prefix="scda_surface_")
+    try:
+        root = os.path.join(tmp, "models")
+        surface_run_dir(port, cfg16, state, root)
+        for w in port.wrappers.values():
+            w.launches = 0
+        zero = launch_counts(port)
+        t0 = time.perf_counter()
+        surface_demo(port, device, cfg16, state, root, tmp)
+        # The demo's two forwards and the two reference forwards.
+        delta(port, zero, {"nms": 8, "roi_align": 4, "roi_align_bwd": 0,
+                           "vgg_stem": 4, "bottleneck_chain": 0}, "demo")
+        for mode in ("pool", "crop"):
+            before = launch_counts(port)
+            surface_pooling(port, device, state, images, infos, frames, mode)
+            # The check forward, the bf16 runs, two profiled passes, the
+            # f32 run on 4 frames.
+            f = 1 + N_FRAMES * (SURFACE_REPEATS + 2) + 4
+            delta(port, before, {"nms": 2 * f, "roi_align": 0,
+                                 "roi_align_bwd": 0, "vgg_stem": f,
+                                 "bottleneck_chain": 0}, f"{mode} serving")
+        before = launch_counts(port)
+        surface_test_net(port, device, root, tmp)
+        delta(port, before, {"nms": 2 * N_FRAMES, "roi_align": N_FRAMES,
+                             "roi_align_bwd": 0, "vgg_stem": N_FRAMES,
+                             "bottleneck_chain": 0}, "test_net")
+        before = launch_counts(port)
+        surface_data_parallel(port, device, frames, tmp)
+        s = 2 + 2 * (1 + DDP_STEPS)
+        delta(port, before, {"nms": s, "roi_align": s, "roi_align_bwd": s,
+                             "vgg_stem": s, "bottleneck_chain": 0},
+              "data-parallel steps")
+        launches = launch_counts(port)
+        emit({"phase": "surface_done", "path": "vgg16_surface",
+              "launches": launches, "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {}, {"vgg16_surface": launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "scda_tpu_torch")):
@@ -1695,7 +2039,8 @@ def main() -> int:
     paths = (("vgg16", vgg16_path), ("res101_ms", res101_ms_path),
              ("vgg16_train", vgg16_train_path),
              ("res101_ms_train", res101_ms_train_path),
-             ("vgg16_scda", vgg16_scda_path))
+             ("vgg16_scda", vgg16_scda_path),
+             ("vgg16_surface", vgg16_surface_path))
     only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
     require(only is None or set(only) <= {n for n, _ in paths},
             f"--only takes a comma-separated subset of {[n for n, _ in paths]}")

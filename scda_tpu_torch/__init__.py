@@ -13,9 +13,12 @@ it needs (``config``, ``data``, ``native``, ``evals.voc_eval``,
 ``evals.coco_protocol``, ``utils.logging``), each held equal to its
 original by ``tests/test_torch_host.py``.
 
-Ported so far: VGG16, ResNet-50/101/152 and tiny Faster R-CNN inference
-in the ``align`` and ``align_legacy`` pooling modes, with multiscale RoI
-pooling, and source-only training.
+Ported: the JAX package's surface but its TPU plumbing (profiling,
+Orbax checkpoints, custom partitioning): VGG16, ResNet-50/101/152 and
+tiny Faster R-CNN inference in every pooling mode, multiscale RoI
+pooling, source-only training, SCDA adaptation, pretrained backbones,
+the FLOP counter, data parallelism over several GPUs, and the
+``trainval``, ``test_net`` and ``demo`` CLIs.
 """
 
 __version__ = "0.1.0"

@@ -32,7 +32,7 @@ from scda_tpu_torch.adapt.region_mining import MinedRegions, mine_regions
 from scda_tpu_torch.config import Config
 from scda_tpu_torch.core.grad_reverse import grad_reverse
 from scda_tpu_torch.models.detector import (
-    TrainForward, forward_train, make_anchors,
+    StepGenerators, TrainForward, forward_train, global_sum, make_anchors,
 )
 from scda_tpu_torch.models.discriminator import (
     PatchDiscriminator, init_discriminator_weights,
@@ -102,15 +102,17 @@ def init_discriminator(cfg: Config, generator: torch.Generator,
 
 
 def _weighted_bce(logits: torch.Tensor, weights: torch.Tensor,
-                  valid: torch.Tensor, domain: int):
+                  valid: torch.Tensor, domain: int, world=None):
     """Count-weighted BCE of domain logits against one label, and the
-    accuracy over the valid groups."""
+    accuracy over the valid groups (denominators over the global batch
+    with a ``world``)."""
     labels = torch.full_like(logits, float(domain))
     per = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
     w = torch.where(valid, weights, torch.zeros_like(weights))
     hit = ((logits > 0) == (labels > 0.5)) & valid
-    acc = hit.float().sum() / valid.float().sum().clamp_min(1.0)
-    return torch.sum(per * w) / w.sum().clamp_min(1e-6), acc
+    acc = hit.float().sum() / global_sum(valid.float().sum(), world).clamp_min(1.0)
+    return (torch.sum(per * w) / global_sum(w.sum(), world).clamp_min(1e-6),
+            acc)
 
 
 Patches = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -124,13 +126,15 @@ def _scda_parts(
     cfg: Config,
     rngs: ScdaGenerators,
     draws: Optional[Dict[str, object]] = None,
+    world=None,
 ) -> Tuple[TrainForward, Patches, Patches]:
     """The shared forward: source detection losses and the mined region
     patches of both domains, each as (patches f32, weights, valid) over
     the flat (B * K) groups."""
     ac = cfg.adapt
     draws = draws or {}
-    det_out = forward_train(model, *src_batch, cfg, rngs.det, draws=draws)
+    det_out = forward_train(model, *src_batch, cfg, rngs.det, draws=draws,
+                            world=world)
 
     # Target domain: features and proposals only (no labels).  The RPN
     # head feeds nothing but the proposal layer, which has no gradient.
@@ -166,18 +170,18 @@ def _scda_parts(
 
 def scda_forward(model: FasterRCNN, d_model: PatchDiscriminator, src_batch,
                  tgt_image, tgt_im_info, cfg: Config, rngs: ScdaGenerators,
-                 draws=None):
+                 draws=None, world=None):
     """The joint SCDA loss: source detection plus the weighted
     region-adversarial BCE, whose gradient reaches the detector reversed.
     The discriminator's gradient is that of this total, so it carries the
     factor ``adv_weight``.  Returns (total, metrics)."""
     ac = cfg.adapt
     det_out, (p_s, w_s, v_s), (p_t, w_t, v_t) = _scda_parts(
-        model, src_batch, tgt_image, tgt_im_info, cfg, rngs, draws)
+        model, src_batch, tgt_image, tgt_im_info, cfg, rngs, draws, world)
     loss_s, acc_s = _weighted_bce(
-        d_model(grad_reverse(p_s, ac.grl_weight)), w_s, v_s, 1)
+        d_model(grad_reverse(p_s, ac.grl_weight)), w_s, v_s, 1, world)
     loss_t, acc_t = _weighted_bce(
-        d_model(grad_reverse(p_t, ac.grl_weight)), w_t, v_t, 0)
+        d_model(grad_reverse(p_t, ac.grl_weight)), w_t, v_t, 0, world)
     adv = 0.5 * (loss_s + loss_t)
 
     total = det_out.loss + ac.adv_weight * adv
@@ -189,7 +193,7 @@ def scda_forward(model: FasterRCNN, d_model: PatchDiscriminator, src_batch,
 
 def scda_forward_alternating(model: FasterRCNN, d_model: PatchDiscriminator,
                              src_batch, tgt_image, tgt_im_info, cfg: Config,
-                             rngs: ScdaGenerators, draws=None):
+                             rngs: ScdaGenerators, draws=None, world=None):
     """The GAN-style pair of losses (``adapt.d_update="alternating"``):
 
       * D loss: BCE with the true domain labels on detached patches, so
@@ -205,17 +209,17 @@ def scda_forward_alternating(model: FasterRCNN, d_model: PatchDiscriminator,
     """
     ac = cfg.adapt
     det_out, (p_s, w_s, v_s), (p_t, w_t, v_t) = _scda_parts(
-        model, src_batch, tgt_image, tgt_im_info, cfg, rngs, draws)
+        model, src_batch, tgt_image, tgt_im_info, cfg, rngs, draws, world)
 
-    d_loss_s, acc_s = _weighted_bce(d_model(p_s.detach()), w_s, v_s, 1)
-    d_loss_t, acc_t = _weighted_bce(d_model(p_t.detach()), w_t, v_t, 0)
+    d_loss_s, acc_s = _weighted_bce(d_model(p_s.detach()), w_s, v_s, 1, world)
+    d_loss_t, acc_t = _weighted_bce(d_model(p_t.detach()), w_t, v_t, 0, world)
     d_loss = 0.5 * (d_loss_s + d_loss_t)
 
     frozen = {n: p.detach() for n, p in d_model.named_parameters()}
     g_loss_s, _ = _weighted_bce(
-        torch.func.functional_call(d_model, frozen, (p_s,)), w_s, v_s, 0)
+        torch.func.functional_call(d_model, frozen, (p_s,)), w_s, v_s, 0, world)
     g_loss_t, _ = _weighted_bce(
-        torch.func.functional_call(d_model, frozen, (p_t,)), w_t, v_t, 1)
+        torch.func.functional_call(d_model, frozen, (p_t,)), w_t, v_t, 1, world)
     adv = 0.5 * (g_loss_s + g_loss_t)
 
     total = det_out.loss + ac.adv_weight * adv + d_loss
@@ -227,7 +231,7 @@ def scda_forward_alternating(model: FasterRCNN, d_model: PatchDiscriminator,
 
 
 def make_scda_train_step(model: FasterRCNN, d_model: PatchDiscriminator,
-                         cfg: Config):
+                         cfg: Config, world=None):
     """The adaptation step for ``model`` and ``d_model`` (on the model's
     device).
 
@@ -239,6 +243,11 @@ def make_scda_train_step(model: FasterRCNN, d_model: PatchDiscriminator,
     ``draws`` may hold the target functions' uniforms (``"anchor"``,
     ``"roi"``) and the mining inits' noise (``"mine_src"``,
     ``"mine_tgt"``, see :func:`scda_tpu_torch.core.kmeans.kmeans`).
+
+    With a ``world`` (:class:`scda_tpu_torch.parallel.mesh.World`) the
+    batches are this rank's rows, the draws its rows of the global ones,
+    and the gradients and metrics are summed over the ranks: the step is
+    the global batch's.
     """
     device = next(model.parameters()).device
     check_train_config(cfg, device)
@@ -252,14 +261,21 @@ def make_scda_train_step(model: FasterRCNN, d_model: PatchDiscriminator,
     def step(state: ScdaTrainState, src_image, src_info, src_gt, src_num,
              tgt_image, tgt_info, draws=None):
         rngs = scda_step_generators(seed, state.step, device)
+        if world is not None:
+            rngs = ScdaGenerators(StepGenerators(*map(world.shard, rngs.det)),
+                                  world.shard(rngs.mine_src),
+                                  world.shard(rngs.mine_tgt))
         total, metrics = forward(
             state.model, state.d_model,
             (src_image, src_info, src_gt, src_num), tgt_image, tgt_info,
-            cfg, rngs, draws)
+            cfg, rngs, draws, world)
         names, params = state.det.trainable()
         d_names, d_params = zip(*state.d_model.named_parameters())
         grads = torch.autograd.grad(total, [*params, *d_params],
                                     materialize_grads=True)
+        if world is not None:
+            grads = world.sum_tensors(grads)
+            metrics = world.sum_metrics(metrics)
         state.apply_gradients(dict(zip(names, grads[:len(names)])),
                               dict(zip(d_names, grads[len(names):])))
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -25,7 +25,7 @@ patch discriminator's flax tree (``conv1..3``, ``fc``).
 
 :func:`load_reference_checkpoint` loads a reference-layout ``.pth``
 (``{'model': state_dict}`` or a bare state dict) with
-``weights_only=True``.
+``weights_only=True`` unless ``allow_unsafe_pickle``.
 """
 
 from __future__ import annotations
@@ -144,17 +144,22 @@ def discriminator_state_dict_from_jax(
     return sd
 
 
-def load_reference_checkpoint(model: torch.nn.Module, path: str):
+def load_reference_checkpoint(model: torch.nn.Module, path: str, *,
+                              allow_unsafe_pickle: bool = False):
     """Load a reference-layout detector ``.pth`` into ``model``; returns
     the file's payload.
 
-    ``weights_only=True``: such files come from outside this package and
-    need nothing but tensors and dicts.  A ``module.`` prefix (saved from
+    ``weights_only=True`` (:func:`scda_tpu_torch.train.torch_convert.
+    torch_load`): such files come from outside this package and need
+    nothing but tensors and dicts; ``allow_unsafe_pickle`` permits the full
+    unpickle a legacy file may need.  A ``module.`` prefix (saved from
     ``nn.DataParallel``) is stripped, and so are the ``num_batches_tracked``
     counters of ``nn.BatchNorm2d`` in torchvision-lineage ResNet files
     (the port's frozen BatchNorm has none).
     """
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    from scda_tpu_torch.train.torch_convert import torch_load
+
+    payload = torch_load(path, allow_unsafe_pickle)
     sd = payload.get("model", payload) if isinstance(payload, dict) else payload
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items() if not k.endswith(".num_batches_tracked")}

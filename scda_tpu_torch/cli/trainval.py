@@ -23,9 +23,17 @@ Flags follow the JAX CLI.  Where that CLI turns ``model.stem_pallas`` off
 for ``vgg16`` with ``train.freeze_pretrained_layers=false``, this one
 leaves the decision to ``train.steps.check_train_config``, which refuses
 the config (on the CPU, ``--set model.stem_pallas=false`` trains conv1 and
-conv2).  Not ported yet: training on more than one device
-(``--num_devices``, ROADMAP.md item 12), which exits with code 2.
-``--profile DIR`` writes a ``torch.profiler`` trace of steps 3-8.
+conv2).  ``--pretrained PTH`` loads a torchvision / caffe backbone
+(``train/torch_convert.py``), ``--use_tfb`` mirrors the metrics to
+TensorBoard where its writer is installed, ``--profile DIR`` writes a
+``torch.profiler`` trace of steps 3-8.
+
+``--num_devices N`` trains data-parallel on N devices, one process each,
+started here (``parallel.mesh.spawn``; NCCL on CUDA, gloo with ``--device
+cpu``): ``--bs`` is the global batch and must divide by N, each rank
+prepares and runs its rows, and the step is the global batch's (see
+``parallel/mesh.py``).  Rank 0 writes the checkpoints and logs.  0 means
+every visible GPU, as the JAX CLI's 0 means every device, and 1 on the CPU.
 """
 
 from __future__ import annotations
@@ -70,11 +78,21 @@ def parse_args(argv=None):
                    help="initialise the detector (model and momentum) from "
                         "the newest checkpoint in DIR and start at step 0: "
                         "adapt a source-pretrained detector")
+    p.add_argument("--pretrained", default=None, metavar="PTH",
+                   help="torchvision / caffe backbone .pth to load")
     p.add_argument("--torch_detector", default=None, metavar="PTH",
                    help="initialise the whole detector from a "
                         "reference-layout .pth (weights_only=True)")
+    p.add_argument("--allow_unsafe_pickle", action="store_true",
+                   help="permit full-pickle torch.load for legacy .pth "
+                        "files that fail weights_only=True (runs arbitrary "
+                        "code from the file: only for checkpoints you trust)")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="devices to train on; only 1 is ported (0 = 1)")
+                   help="devices to train on, one process each (0 = every "
+                        "visible GPU; 1 on the CPU); --bs must divide by it")
+    p.add_argument("--use_tfb", action="store_true",
+                   help="also write TensorBoard summaries (where the "
+                        "writer's package is installed)")
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--cfg_file", default=None,
                    help="YAML config overlay")
@@ -180,28 +198,24 @@ def main(argv=None) -> int:
         print("--adapt requires --target_dataset (or --dataset synthetic)",
               file=sys.stderr)
         return 2
-    if args.num_devices > 1:
-        print("--num_devices > 1: multi-device training is not ported to "
-              "PyTorch yet (ROADMAP.md item 12)", file=sys.stderr)
-        return 2
 
     import torch
 
     from scda_tpu_torch.config import replace_path
+    from scda_tpu_torch.parallel.mesh import num_devices, spawn
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (use --device cpu "
               "for the plain-PyTorch path)", file=sys.stderr)
         return 2
+    n_dev = num_devices(args.num_devices, device)
+    if args.bs % n_dev:
+        print(f"batch size {args.bs} not divisible by {n_dev} devices",
+              file=sys.stderr)
+        return 2
 
-    from scda_tpu_torch.data.pipeline import DataLoader
-    from scda_tpu_torch.utils.logging import MetricsLogger
-    from scda_tpu_torch.bridge import load_reference_checkpoint
-    from scda_tpu_torch.models.faster_rcnn import build_model, init_weights
-    from scda_tpu_torch.train import checkpoint as ckpt
-    from scda_tpu_torch.train.state import create_train_state
-    from scda_tpu_torch.train.steps import check_train_config, make_train_step
+    from scda_tpu_torch.train.steps import check_train_config
 
     check_train_config(cfg, device)
     dataset = get_dataset(args, cfg, args.dataset)
@@ -221,21 +235,67 @@ def main(argv=None) -> int:
             cfg = replace_path(cfg, "data.image_size", canvas)
     print(f"dataset={dataset.name} ({len(dataset)} images, "
           f"{dataset.num_classes - 1} fg classes), net={args.net}, "
-          f"device={device}, adapt={args.adapt}"
+          f"device={device}, devices={n_dev}, adapt={args.adapt}"
           + (f", target={tgt_dataset.name} ({len(tgt_dataset)} images)"
              if args.adapt else ""))
+    run = (args, cfg, dataset, tgt_dataset)
+    if n_dev > 1:
+        # Each rank's share of this process's CPU threads.
+        return spawn(_train_rank, n_dev, device, *run,
+                     threads=max(torch.get_num_threads() // n_dev, 1))
+    return _train(None, device, *run)
+
+
+def _train_rank(world, device, *run) -> int:
+    """One rank of data-parallel training; only rank 0 prints."""
+    import contextlib
+
+    if world.is_main:
+        return _train(world, device, *run)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return _train(world, device, *run)
+
+
+def _train(world, device, args, cfg, dataset, tgt_dataset) -> int:
+    """The training loop on ``device``: one process, or one rank of a
+    ``world`` (this rank's rows of every batch; rank 0 writes)."""
+    import torch
+
+    from scda_tpu_torch.bridge import load_reference_checkpoint
+    from scda_tpu_torch.data.pipeline import DataLoader
+    from scda_tpu_torch.models.faster_rcnn import build_model, init_weights
+    from scda_tpu_torch.parallel.mesh import ShardedDataLoader
+    from scda_tpu_torch.train import checkpoint as ckpt
+    from scda_tpu_torch.train.state import create_train_state
+    from scda_tpu_torch.train.steps import make_train_step
+    from scda_tpu_torch.utils.logging import MetricsLogger
+
+    main_rank = world is None or world.is_main
+
+    def loader_for(ds, seed):
+        if world is None:
+            return DataLoader(ds, cfg.data, args.bs, seed=seed)
+        return ShardedDataLoader(ds, cfg.data, args.bs, seed=seed, world=world)
 
     # Seeded init with the first conv scaled to mean-subtracted 0-255
-    # pixels, unless a whole detector is loaded.
+    # pixels, then a pretrained backbone, unless a whole detector is
+    # loaded (the JAX CLI's order).
     model = build_model(cfg.model, cfg.anchors.num_anchors, device="cpu")
     init_weights(model, torch.Generator().manual_seed(cfg.train.seed),
                  input_scale=1.0 / 64)
+    if args.pretrained:
+        from scda_tpu_torch.train.torch_convert import load_pretrained_backbone
+
+        load_pretrained_backbone(model, args.pretrained, cfg.model.backbone,
+                                 allow_unsafe_pickle=args.allow_unsafe_pickle)
+        print(f"loaded pretrained backbone from {args.pretrained}")
     if args.torch_detector:
-        load_reference_checkpoint(model, args.torch_detector)
+        load_reference_checkpoint(model, args.torch_detector,
+                                  allow_unsafe_pickle=args.allow_unsafe_pickle)
         print(f"initialised the detector from {args.torch_detector}")
     model = model.to(device)
 
-    loader = DataLoader(dataset, cfg.data, args.bs, seed=cfg.train.seed)
+    loader = loader_for(dataset, cfg.train.seed)
     steps_per_epoch = len(loader)
     total_steps = args.steps or steps_per_epoch * cfg.train.max_epochs
     state = create_train_state(cfg, model, steps_per_epoch)
@@ -252,22 +312,22 @@ def main(argv=None) -> int:
         d_model = init_discriminator(
             cfg, torch.Generator().manual_seed(cfg.train.seed + 1), device)
         state = create_scda_state(cfg, state, d_model)
-        step_fn = make_scda_train_step(model, d_model, cfg)
-        tgt_loader = DataLoader(tgt_dataset, cfg.data, args.bs,
-                                seed=cfg.train.seed + 7)
+        step_fn = make_scda_train_step(model, d_model, cfg, world)
+        tgt_loader = loader_for(tgt_dataset, cfg.train.seed + 7)
         tgt_iter = iter(tgt_loader.repeat())
     else:
-        step_fn = make_train_step(model, cfg)
+        step_fn = make_train_step(model, cfg, world)
 
     save_dir = os.path.join(args.save_dir, args.net, dataset.name)
-    os.makedirs(save_dir, exist_ok=True)
-    with open(os.path.join(save_dir, "config.json"), "w") as f:
-        json.dump({"config": dataclasses.asdict(cfg),
-                   "classes": list(dataset.classes),
-                   # The checkpoints' layout: "scda" ones also hold the
-                   # discriminator and its momentum.
-                   "state_kind": "scda" if args.adapt else "det"},
-                  f, indent=1)
+    if main_rank:
+        os.makedirs(save_dir, exist_ok=True)
+        with open(os.path.join(save_dir, "config.json"), "w") as f:
+            json.dump({"config": dataclasses.asdict(cfg),
+                       "classes": list(dataset.classes),
+                       # The checkpoints' layout: "scda" ones also hold the
+                       # discriminator and its momentum.
+                       "state_kind": "scda" if args.adapt else "det"},
+                      f, indent=1)
     if args.resume and ckpt.latest_step(save_dir) is not None:
         ckpt.restore_checkpoint(save_dir, state)
         # The loaders too stand where the checkpointed run left them.
@@ -276,7 +336,10 @@ def main(argv=None) -> int:
             tgt_loader.fast_forward(state.step)
         print(f"resumed from step {state.step}")
 
-    logger = MetricsLogger(log_file=os.path.join(save_dir, "metrics.jsonl"))
+    logger = MetricsLogger(
+        log_file=os.path.join(save_dir, "metrics.jsonl") if main_rank else None,
+        tensorboard_dir=(os.path.join(save_dir, "tb")
+                         if args.use_tfb and main_rank else None))
     ckpt_every = args.checkpoint_interval or steps_per_epoch
     prof = None
     start_step = step = state.step
@@ -294,7 +357,7 @@ def main(argv=None) -> int:
                             for a in (tb.image, tb.im_info)]
             state, metrics = step_fn(state, *tensors)
             step = state.step
-            if args.profile and step == 3:
+            if args.profile and main_rank and step == 3:
                 prof = _start_profile(torch, device)
             if prof is not None and step == 8:
                 _stop_profile(torch, device, prof, args.profile)
@@ -309,7 +372,7 @@ def main(argv=None) -> int:
                 if t_train0 is None:   # the first step builds the kernels
                     t_train0, first_step = now, step
                 logger.log(step, m)
-            if step % ckpt_every == 0 or step == total_steps:
+            if main_rank and (step % ckpt_every == 0 or step == total_steps):
                 path = ckpt.save_checkpoint(save_dir, state,
                                             epoch=step // steps_per_epoch)
                 print(f"checkpoint -> {path}", flush=True)

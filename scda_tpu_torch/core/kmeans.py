@@ -35,11 +35,13 @@ from typing import Dict, Optional
 
 import torch
 
+from scda_tpu_torch.core.draws import uniform
+
 
 def _gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
     """Standard Gumbel noise from ``generator``, moved to ``device``."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = uniform(generator, shape)
     e = (-torch.log(u.clamp_min(tiny))).clamp_min(tiny)   # exponential, > 0
     return (-torch.log(e)).to(device)
 
@@ -157,8 +159,7 @@ def kmeans(
         if draws is not None:
             u = draws["u"]
         elif generator is not None:
-            u = torch.rand((b, k), generator=generator,
-                           device=generator.device).to(dev)
+            u = uniform(generator, (b, k)).to(dev)
         centers = _init_centers_spread(points, mask, k, u)
 
     for _ in range(iters):

@@ -15,8 +15,8 @@ from scda_tpu_torch.config import Config
 from scda_tpu_torch.data.pipeline import DataLoader
 from scda_tpu_torch.data.voc import Dataset
 from scda_tpu_torch.evals.voc_eval import evaluate_detections
-from scda_tpu_torch.models.detector import forward_inference
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
+from scda_tpu_torch.train.steps import make_eval_step
 
 
 def bf16_inference_params(model: FasterRCNN) -> FasterRCNN:
@@ -31,51 +31,74 @@ def bf16_inference_params(model: FasterRCNN) -> FasterRCNN:
 
 def run_inference(model: FasterRCNN, dataset: Dataset, cfg: Config, *,
                   device: torch.device | str, batch_size: int = 1,
-                  progress: bool = False):
+                  progress: bool = False, world=None):
     """Returns (all_dets for evaluate_detections, images/sec).
 
     The images/sec leave out every first batch of a canvas shape (the
     first forward builds the CUDA kernels and warms the allocator and
     cuDNN); when every batch is such a first, they include it.
+
+    With a ``world`` (:class:`scda_tpu_torch.parallel.mesh.World`) each
+    rank runs its rows of every batch (``batch_size`` is the global
+    batch); rank 0 gathers the rows, puts them in the one-process order,
+    and returns the detections and the images/sec over the slowest rank's
+    time; the other ranks return (None, None).
     """
     if cfg.test.bf16_weights:
         model = bf16_inference_params(model)
-    loader = DataLoader(dataset, cfg.data, batch_size, shuffle=False,
-                        augment_flip=False, pad_final=True)
-    # Wrap-padded slots repeat earlier records; ``seen`` skips them.
-    ids = [r.image_id for r in dataset.records]
-    all_dets = defaultdict(list)
-    seen = set()
+    step = make_eval_step(model, cfg)
+    kw = dict(shuffle=False, augment_flip=False, pad_final=True)
+    if world is None:
+        loader = DataLoader(dataset, cfg.data, batch_size, **kw)
+    else:
+        from scda_tpu_torch.parallel.mesh import ShardedDataLoader
+
+        loader = ShardedDataLoader(dataset, cfg.data, batch_size, world=world,
+                                   **kw)
+    row0 = 0 if world is None else world.rows(batch_size).start
+    # (batch, row in the global batch, record, warm-up batch, detections)
+    rows = []
     t0 = time.perf_counter()
     warmup_time = 0.0
     warm_shapes: set = set()
-    excluded_images = 0
     for bi, batch in enumerate(loader):
         tb = time.perf_counter()
         image = torch.from_numpy(batch.image).to(device)
         im_info = torch.from_numpy(batch.im_info).to(device)
-        dets = forward_inference(model, image, im_info, cfg)
-        dets = [t.cpu().numpy() for t in dets]   # waits for the device
+        dets = [t.cpu().numpy() for t in step(image, im_info)]   # waits
         boxes, scores, classes, valid = dets
         first_of_shape = batch.image.shape not in warm_shapes
         if first_of_shape:
             warm_shapes.add(batch.image.shape)
             warmup_time += time.perf_counter() - tb
         for k in range(batch.image.shape[0]):
-            rec_idx = int(batch.indices[k])
-            if rec_idx in seen:
-                continue
-            if first_of_shape:
-                excluded_images += 1
-            seen.add(rec_idx)
-            for j in np.nonzero(valid[k])[0]:
-                cls_name = dataset.classes[int(classes[k, j]) - 1]
-                all_dets[cls_name].append(
-                    (ids[rec_idx], boxes[k, j].astype(np.float64),
-                     float(scores[k, j])))
+            js = np.nonzero(valid[k])[0]
+            rows.append((bi, row0 + k, int(batch.indices[k]), first_of_shape,
+                         [(int(classes[k, j]), boxes[k, j].astype(np.float64),
+                           float(scores[k, j])) for j in js]))
         if progress and bi % 20 == 0:
-            print(f"  eval {len(seen)}/{len(ids)}", flush=True)
+            print(f"  eval batch {bi + 1}/{len(loader)}", flush=True)
     total = time.perf_counter() - t0
+    if world is not None:
+        gathered = world.gather((rows, total, warmup_time))
+        if gathered is None:
+            return None, None
+        rows = sorted((r for g in gathered for r in g[0]),
+                      key=lambda r: (r[0], r[1]))
+        total = max(g[1] for g in gathered)
+        warmup_time = max(g[2] for g in gathered)
+    # Wrap-padded slots repeat earlier records; ``seen`` skips them.
+    ids = [r.image_id for r in dataset.records]
+    all_dets = defaultdict(list)
+    seen = set()
+    excluded_images = 0
+    for _, _, rec_idx, first_of_shape, found in rows:
+        if rec_idx in seen:
+            continue
+        seen.add(rec_idx)
+        excluded_images += first_of_shape
+        for cls, box, score in found:
+            all_dets[dataset.classes[cls - 1]].append((ids[rec_idx], box, score))
     measured = len(seen) - min(excluded_images, len(seen))
     if measured > 0:
         ips = measured / max(total - warmup_time, 1e-9)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scda_tpu_torch.core.draws import uniform
 from scda_tpu_torch.ops.kernels.stem_kernel import vgg_stem_fused
 
 # (torch index, channels) per conv, "M" per maxpool: torchvision VGG16
@@ -77,7 +78,7 @@ def dropout(x: torch.Tensor, rate: float,
     scale the kept by 1 / (1 - rate); the uniforms come from
     ``generator``, drawn on its device."""
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    u = uniform(generator, x.shape)
     return torch.where(u.to(x.device) < keep, x / keep, torch.zeros_like(x))
 
 

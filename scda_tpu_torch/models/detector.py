@@ -5,7 +5,10 @@ postprocess, plus ``make_anchors`` and the multiscale pooling dispatch
 
 Every size is fixed by the config and invalid slots are masked, as in
 the JAX package, so the whole forward stays on the device with no host
-synchronisation.  The JAX losses pick labels with one-hot contractions,
+synchronisation.  Under data parallelism (``world``, see
+:mod:`scda_tpu_torch.parallel.mesh`) each loss divides this rank's
+numerator by the global batch's denominator, so the ranks' losses sum to
+the loss of the global batch.  The JAX losses pick labels with one-hot contractions,
 an XLA lowering choice; here they are gathers, which give the same
 values and gradients.
 """
@@ -48,6 +51,16 @@ def make_anchors(cfg: Config, feat_hw: Tuple[int, int],
     return torch.from_numpy(anchors).to(device)
 
 
+def global_sum(t: torch.Tensor, world) -> torch.Tensor:
+    """``t`` summed over the data-parallel ranks (detached), or ``t``
+    itself without a ``world``."""
+    return t if world is None else world.sum(t)
+
+
+def world_size(world) -> int:
+    return 1 if world is None else world.size
+
+
 class StepGenerators(NamedTuple):
     """The train step's randomness, split three ways as JAX splits its
     key: anchor sampling, roi sampling, dropout."""
@@ -65,7 +78,7 @@ class TrainForward(NamedTuple):
 
 
 def _rpn_losses(cls_logits: torch.Tensor, bbox_pred: torch.Tensor,
-                tgts: AnchorTargets):
+                tgts: AnchorTargets, world=None):
     """RPN losses: cross-entropy over the sampled anchors, smooth-L1
     (sigma 3) with the targets' outside weights, over the batch."""
     b = cls_logits.shape[0]
@@ -73,22 +86,24 @@ def _rpn_losses(cls_logits: torch.Tensor, bbox_pred: torch.Tensor,
     labels = tgts.labels
     picked = torch.gather(logp, 2, torch.clamp(labels, min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    cls_loss = -torch.sum(picked * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    cls_loss = -torch.sum(picked * mask) / torch.clamp(
+        global_sum(torch.sum(mask), world), min=1.0)
     box_loss = box_ops.smooth_l1_loss(
         bbox_pred.reshape(b, -1, 4), tgts.bbox_targets, tgts.bbox_inside_w,
-        tgts.bbox_outside_w, sigma=3.0) / b
+        tgts.bbox_outside_w, sigma=3.0) / (b * world_size(world))
     return cls_loss, box_loss
 
 
 def _rcnn_losses(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
                  samples: RoiSamples, num_classes: int,
-                 class_agnostic: bool):
+                 class_agnostic: bool, world=None):
     """RoI head losses: cross-entropy over every sampled roi, smooth-L1
     (sigma 1) on the gt class's deltas, mean over rois."""
     bs, s = samples.labels.shape
+    n_rois = bs * s * world_size(world)
     logp = torch.log_softmax(cls_logits.reshape(bs, s, -1), dim=-1)
     labels = samples.labels[..., None]
-    cls_loss = -torch.mean(torch.gather(logp, 2, labels)[..., 0])
+    cls_loss = -torch.sum(torch.gather(logp, 2, labels)[..., 0]) / n_rois
     if class_agnostic:
         deltas = bbox_deltas.reshape(bs, s, 4)
     else:
@@ -98,7 +113,7 @@ def _rcnn_losses(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor,
     outside_w = (samples.bbox_inside_w > 0).float()
     box_loss = box_ops.smooth_l1_loss(
         deltas, samples.bbox_targets, samples.bbox_inside_w, outside_w,
-        sigma=1.0) / (bs * s)
+        sigma=1.0) / n_rois
     return cls_loss, box_loss
 
 
@@ -112,12 +127,15 @@ def forward_train(
     rngs: StepGenerators,
     *,
     draws: Optional[Dict[str, torch.Tensor]] = None,
+    world=None,
 ) -> TrainForward:
     """The supervised training forward: backbone, RPN and its targets,
     proposals (``cfg.train.proposal``, no gradient), roi sampling,
     pooling (both pyramid levels with ``multiscale_roi``), the head with
     dropout, and the four losses.  ``draws`` may hold the ``"anchor"``
-    and ``"roi"`` uniforms of the target functions (tests inject JAX's)."""
+    and ``"roi"`` uniforms of the target functions (tests inject JAX's).
+    With a ``world`` the losses take the global batch's denominators and
+    ``rngs`` are expected to be this rank's row shards."""
     mc = cfg.model
     draws = draws or {}
     if mc.multiscale_roi:
@@ -131,7 +149,7 @@ def forward_train(
     a_tgts = anchor_targets(anchors, gt_boxes, num_boxes, im_info,
                             cfg.train.rpn_target, rngs.anchor,
                             draws=draws.get("anchor"))
-    rpn_cls_loss, rpn_box_loss = _rpn_losses(rpn_cls, rpn_bbox, a_tgts)
+    rpn_cls_loss, rpn_box_loss = _rpn_losses(rpn_cls, rpn_bbox, a_tgts, world)
 
     samples = proposal_targets(props.boxes, props.valid, gt_boxes, num_boxes,
                                cfg.train.roi_target, rngs.roi,
@@ -144,7 +162,8 @@ def forward_train(
     cls_logits, bbox_deltas = model.roi_head(pooled, train=True,
                                              generator=rngs.dropout)
     rcnn_cls_loss, rcnn_box_loss = _rcnn_losses(
-        cls_logits, bbox_deltas, samples, mc.num_classes, mc.class_agnostic)
+        cls_logits, bbox_deltas, samples, mc.num_classes, mc.class_agnostic,
+        world)
 
     total = rpn_cls_loss + rpn_box_loss + rcnn_cls_loss + rcnn_box_loss
     fg_cnt = samples.fg_mask.sum()

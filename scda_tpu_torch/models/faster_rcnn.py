@@ -10,10 +10,10 @@ The public methods keep the JAX layouts (NHWC images and features);
 inside, modules run NCHW in ``torch.channels_last``, whose permuted view
 is the NHWC tensor without a copy.
 
-Ported: the ``vgg16``, ``tiny`` and ``resnet50/101/152`` backbones with
-``align`` and ``align_legacy`` pooling on grouped rois, and multiscale
-RoI pooling (``multiscale_roi``) with the lateral projection before or
-after pooling (``ms_proj_after_pool``).
+The ``vgg16``, ``tiny`` and ``resnet50/101/152`` backbones; the four
+pooling modes (``align``, ``align_legacy``, ``pool``, ``crop``) on grouped
+or flat rois; multiscale RoI-Align (``multiscale_roi``) with the lateral
+projection before or after pooling (``ms_proj_after_pool``).
 """
 
 from __future__ import annotations
@@ -32,19 +32,16 @@ from scda_tpu_torch.models.backbones.tiny import TinyBackbone, TinyHead
 from scda_tpu_torch.models.backbones.vgg import VGG16Backbone, VGG16Head
 from scda_tpu_torch.models.rpn import RPNHead
 from scda_tpu_torch.ops.roi_ops import (
-    contract_axis_weights, roi_align_axis_weights, roi_align_grouped,
-    roi_align_legacy_grouped,
+    contract_axis_weights, roi_align, roi_align_axis_weights,
+    roi_align_grouped, roi_align_legacy, roi_align_legacy_grouped, roi_crop,
+    roi_pool,
 )
 
-_POOLING_MODES = ("align", "align_legacy")
+_POOLING_MODES = ("align", "align_legacy", "pool", "crop")
 _BACKBONES = ("vgg16", "tiny", "resnet50", "resnet101", "resnet152")
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.pooling_mode in ("pool", "crop"):
-        raise NotImplementedError(
-            f"pooling_mode {cfg.pooling_mode!r} is not ported yet (see "
-            "ROADMAP.md); use 'align' or 'align_legacy'")
+def _check_config(cfg: ModelConfig) -> None:
     if cfg.pooling_mode not in _POOLING_MODES:
         raise ValueError(f"unknown pooling_mode {cfg.pooling_mode!r}")
     if cfg.backbone not in _BACKBONES:
@@ -56,7 +53,7 @@ class FasterRCNN(nn.Module):
 
     def __init__(self, cfg: ModelConfig, num_anchors: int = 9):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.dtype = dt
         self.cfg = cfg
@@ -149,22 +146,38 @@ def pool_rois(
     *,
     output_size: int | None = None,
 ) -> torch.Tensor:
-    """RoI-Align per ``cfg.pooling_mode`` on NHWC features and grouped
-    (B, R, 4) rois; returns flat (B*R, P, P, C) for the RoI head."""
-    if rois.dim() != 3 or batch_indices is not None:
-        raise NotImplementedError(
-            "flat (R, 4) rois with batch indices are not ported yet (see "
-            "ROADMAP.md); pass grouped (B, R, 4) rois")
-    _check_ported(cfg)
+    """Pool per ``cfg.pooling_mode`` from NHWC features; returns flat
+    (R_total, P, P, C) for the RoI head.
+
+    ``rois`` are grouped (B, R, 4), or flat (R, 4) with ``batch_indices``
+    (or (R, 5) with the index first).  ``align`` and ``align_legacy`` on
+    grouped rois are the two contractions of kernel K2; on flat rois, and
+    ``pool`` and ``crop`` always, they are gathers (flat, with the grouped
+    rois flattened image-major)."""
+    _check_config(cfg)
     p = output_size or cfg.pooling_size
-    if cfg.pooling_mode == "align_legacy":
-        out = roi_align_legacy_grouped(feat, rois, output_size=p,
-                                       spatial_scale=1.0 / cfg.feat_stride)
-    else:
-        out = roi_align_grouped(feat, rois, output_size=p,
-                                spatial_scale=1.0 / cfg.feat_stride,
-                                sampling_ratio=cfg.sampling_ratio)
-    return out.reshape((-1,) + tuple(out.shape[2:]))
+    scale = 1.0 / cfg.feat_stride
+    mode = cfg.pooling_mode
+    if rois.dim() == 3 and mode in ("align", "align_legacy"):
+        if mode == "align_legacy":
+            out = roi_align_legacy_grouped(feat, rois, output_size=p,
+                                           spatial_scale=scale)
+        else:
+            out = roi_align_grouped(feat, rois, output_size=p,
+                                    spatial_scale=scale,
+                                    sampling_ratio=cfg.sampling_ratio)
+        return out.reshape((-1,) + tuple(out.shape[2:]))
+    if rois.dim() == 3:
+        b, r, _ = rois.shape
+        batch_indices = torch.arange(b, device=rois.device).repeat_interleave(r)
+        rois = rois.reshape(b * r, 4)
+    if mode == "align":
+        return roi_align(feat, rois, batch_indices, output_size=p,
+                         spatial_scale=scale,
+                         sampling_ratio=cfg.sampling_ratio)
+    op = {"align_legacy": roi_align_legacy, "pool": roi_pool,
+          "crop": roi_crop}[mode]
+    return op(feat, rois, batch_indices, output_size=p, spatial_scale=scale)
 
 
 def pool_rois_multiscale(

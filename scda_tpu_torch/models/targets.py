@@ -22,13 +22,13 @@ import torch
 
 from scda_tpu_torch.config import ROITargetConfig, RPNTargetConfig
 from scda_tpu_torch.core import boxes as box_ops
+from scda_tpu_torch.core.draws import Source, uniform
 
 
-def uniforms(generator: torch.Generator, shape, device) -> torch.Tensor:
+def uniforms(generator: Source, shape, device) -> torch.Tensor:
     """f32 uniforms in [0, 1) drawn on the generator's device, moved to
-    ``device``."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return u.to(device)
+    ``device`` (``generator`` may be one rank's :class:`RowShard`)."""
+    return uniform(generator, shape).to(device)
 
 
 def _masked_rank(u: torch.Tensor, mask: torch.Tensor):

@@ -20,7 +20,9 @@ import numpy as np
 import torch
 
 from scda_tpu_torch.config import Config
-from scda_tpu_torch.models.detector import StepGenerators, forward_train
+from scda_tpu_torch.models.detector import (
+    Detections, StepGenerators, forward_inference, forward_train,
+)
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
 from scda_tpu_torch.train.state import TrainState
 
@@ -75,7 +77,7 @@ def scda_step_generators(seed: int, step: int, device) -> ScdaGenerators:
     return ScdaGenerators(StepGenerators(*gens[:3]), gens[3], gens[4])
 
 
-def make_train_step(model: FasterRCNN, cfg: Config):
+def make_train_step(model: FasterRCNN, cfg: Config, world=None):
     """The supervised train step for ``model`` (on its device).
 
     ``step(state, image, im_info, gt_boxes, num_boxes, draws=None)``
@@ -83,6 +85,13 @@ def make_train_step(model: FasterRCNN, cfg: Config):
     stay on the device.  ``draws`` injects the target functions'
     uniforms (see :func:`forward_train`).  The generators are seeded
     from ``cfg.train.seed`` and the step.
+
+    With a ``world`` (:class:`scda_tpu_torch.parallel.mesh.World`, the
+    JAX step's ``mesh``) the batch is this rank's rows of the global
+    batch: each rank draws its rows of the global draws, the losses take
+    the global denominators, and the gradients (one bucketed
+    ``all_reduce``) and the metrics are summed over the ranks before the
+    optimizer, so every replica takes the global batch's step.
     """
     device = next(model.parameters()).device
     check_train_config(cfg, device)
@@ -91,11 +100,34 @@ def make_train_step(model: FasterRCNN, cfg: Config):
     def step(state: TrainState, image, im_info, gt_boxes, num_boxes,
              draws: Optional[Dict[str, torch.Tensor]] = None):
         rngs = step_generators(seed, state.step, device)
+        if world is not None:
+            rngs = StepGenerators(*map(world.shard, rngs))
         out = forward_train(state.model, image, im_info, gt_boxes, num_boxes,
-                            cfg, rngs, draws=draws)
+                            cfg, rngs, draws=draws, world=world)
         names, params = state.trainable()
         grads = torch.autograd.grad(out.loss, params, materialize_grads=True)
+        metrics = {k: v.detach() for k, v in out.metrics.items()}
+        if world is not None:
+            grads = world.sum_tensors(grads)
+            metrics = world.sum_metrics(metrics)
         state.apply_gradients(dict(zip(names, grads)))
-        return state, {k: v.detach() for k, v in out.metrics.items()}
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(model: FasterRCNN, cfg: Config):
+    """The inference step: ``step(image, im_info)`` -> fixed-size
+    :class:`Detections` (``cfg.test.max_per_image`` per image, invalid
+    slots masked), under ``torch.inference_mode``.
+
+    The JAX step's ``mesh`` shards the batch; here each data-parallel rank
+    calls the step on its own rows (``parallel.mesh.ShardedDataLoader``)
+    and the detections are gathered on rank 0
+    (:func:`scda_tpu_torch.evals.detect.run_inference`)."""
+
+    @torch.inference_mode()
+    def step(image: torch.Tensor, im_info: torch.Tensor) -> Detections:
+        return forward_inference(model, image, im_info, cfg)
 
     return step

@@ -356,16 +356,29 @@ def test_reference_checkpoint_loads(tmp_path):
 
 
 def test_unported_modes_raise():
-    """RoI pool and crop, and flat (R, 4) rois with batch indices, are
-    not ported yet."""
+    """The modes that once raised here now run: RoI pool and crop build
+    and serve, and flat (R, 4) rois with batch indices pool as the same
+    rois grouped do, in every mode; an unknown mode still raises."""
     cfg = tiny_config()
+    image = torch.randn(1, 128, 192, 3) * 30
+    info = torch.tensor([[128.0, 192.0, 1.0]])
     for mode in ("pool", "crop"):
-        with pytest.raises(NotImplementedError):
-            build_model(replace_path(cfg.model, "pooling_mode", mode))
-    feat = torch.zeros(1, 4, 6, 64)
-    with pytest.raises(NotImplementedError):
-        pool_rois(feat, torch.zeros(3, 4), torch.zeros(3, dtype=torch.long),
-                  cfg.model)
+        c = replace_path(cfg, "model.pooling_mode", mode)
+        model = build_model(c.model, c.anchors.num_anchors)
+        d = tdet.forward_inference(model, image, info, c)
+        assert d.boxes.shape == (1, 16, 4)
+        assert bool(torch.isfinite(d.boxes).all())
+    feat = torch.randn(2, 4, 6, 64)
+    rois = torch.tensor([[[0.0, 0.0, 40.0, 30.0], [8.0, 4.0, 90.0, 60.0]],
+                         [[16.0, 8.0, 50.0, 50.0], [-8.0, 0.0, 20.0, 70.0]]])
+    for mode in ("align", "align_legacy", "pool", "crop"):
+        mc = replace_path(cfg.model, "pooling_mode", mode)
+        grouped = pool_rois(feat, rois, None, mc)
+        flat = pool_rois(feat, rois.reshape(4, 4),
+                         torch.tensor([0, 0, 1, 1]), mc)
+        torch.testing.assert_close(flat, grouped, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="pooling_mode"):
+        build_model(replace_path(cfg.model, "pooling_mode", "warp"))
 
 
 @pytest.mark.parametrize("ms_proj_after_pool", [False, True])

@@ -447,7 +447,9 @@ def test_cli_trains_and_test_net_evaluates(tmp_path):
     # --adapt is ported; without a target to adapt to it still exits 2.
     pytest.param(["--adapt", "--dataset", "cityscapes_train"],
                  "requires --target_dataset", id="argv0"),
-    pytest.param(["--num_devices", "2"], "ROADMAP", id="argv1"),
+    # --num_devices is ported; a batch that does not divide still exits 2.
+    pytest.param(["--num_devices", "2", "--bs", "3"], "not divisible",
+                 id="argv1"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, why, capsys):
     from scda_tpu_torch.cli import trainval

@@ -64,7 +64,13 @@ non-zero:
      ``cli/test_net.py --use_07_metric --iou_sweep --coco_protocol
      --vis`` on 8 frames, and ``parallel/mesh.py`` at world size 1 with
      NCCL (one f32 step at bs 2 against the plain step: gradients within
-     1e-4 of each norm; three bf16 steps each, img/s).
+     1e-4 of each norm; three bf16 steps each, img/s);
+  8. bench   — one unit each of four ``bench_torch.py`` configs at batch
+     shapes no other path runs (``inference_bs8``, ``res101_bs8``,
+     ``train_bs16``, ``scda_car_bs8``), built by the bench: launches and
+     peak memory per unit, then each kernel against its twin on the
+     inputs its unit gave it (K1 at (8, 6000) and (16, 12000), K2 at B=8
+     and 16, K3 at B=8 and 16, K4 per stage at B=8), with times.
 
 The ``slice`` and ``train`` lines carry ``model_flops_per_image``
 (``utils/flops.py``) and ``mfu``, img/s times those FLOPs over the bf16
@@ -73,7 +79,8 @@ peak: a yardstick that gates nothing.
 The last lines are the ``nvidia-smi`` line, the kernels summary and
 ``{"ok": true, "device": {...}}``.  While working on one path,
 ``python3 chip_smoke.py --only vgg16_scda`` (a comma-separated subset of
-``vgg16,res101_ms,vgg16_train,res101_ms_train,vgg16_scda,vgg16_surface``) runs just
+``vgg16,res101_ms,vgg16_train,res101_ms_train,vgg16_scda,vgg16_surface,
+bench_batches``) runs just
 that and ends with ``{"ok": false, "partial": [...]}``: only the run
 with no arguments is the check.  It imports nothing of JAX and nothing
 of the JAX package.
@@ -84,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -398,9 +406,11 @@ class Port:
         from scda_tpu_torch.train.steps import (
             ScdaGenerators, make_train_step, step_generators,
         )
-        from scda_tpu_torch.utils import flops
+        from scda_tpu_torch.ops.kernels import call_sites
+        from scda_tpu_torch.utils import flops, profile
 
         self.torch = torch
+        self.call_sites, self.profile = call_sites, profile
         self.get_config, self.replace_path = get_config, replace_path
         self.config_from_yaml = config_from_yaml
         self.create_train_state = create_train_state
@@ -502,61 +512,14 @@ class Port:
 
     def profile_pass(self, run, units, path, wall_ms_per_unit):
         """One ``torch.profiler`` pass over ``run()`` (``units`` images or
-        steps), after the main path's counts were read: device time and
-        kernels per unit, the share of each kind of kernel, the ten
-        longest kernels, and the busy share, device time over the
-        unprofiled wall time ``wall_ms_per_unit`` (the profiler slows the
-        host).  A measurement, not a check."""
-        torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
-
-        kinds = (("K1 nms", ("nms_",)), ("K2 roi_align", ("roi_align",)),
-                 ("K3 vgg_stem", ("vgg_stem",)),
-                 ("K4 bottleneck_chain", ("chain_wgmma", "chain_gemm")),
-                 ("library conv/gemm", ("cudnn", "cutlass", "xmma", "gemm",
-                                        "gemv", "convolve", "wgrad", "dgrad",
-                                        "fprop", "nchwToNhwc", "nhwcToNchw",
-                                        "cublas")),
-                 ("copy", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
-                 ("optimizer foreach", ("multi_tensor",)),
-                 ("sort/scan/reduce", ("sort", "Sort", "scan", "reduce",
-                                       "Reduce", "cub::", "topk", "TopK")),
-                 ("elementwise", ("elementwise", "vectorized", "Elementwise",
-                                  "fill", "index", "gather", "scatter",
-                                  "max_pool", "where", "masked")))
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        total = sum(ms for _, _, ms in rows)
-        if not total:
-            emit({"phase": "profile", "path": path,
-                  "error": "the profiler saw no device time"})
-            return
-        by_kind = {}
-        for key, _, ms in rows:
-            kind = next((k for k, words in kinds
-                         if any(w in key for w in words)), "other")
-            by_kind[kind] = by_kind.get(kind, 0.0) + ms
-        top = sorted(rows, key=lambda r: -r[2])[:10]
-        emit({"phase": "profile", "path": path, "units": units,
-              "device_ms_per_unit": total / units,
-              "kernels_per_unit": sum(n for _, n, _ in rows) / units,
-              "wall_ms_per_unit_unprofiled": wall_ms_per_unit,
-              "device_busy_share": total / units / wall_ms_per_unit,
-              "share_by_kind": {k: v / total for k, v in sorted(
-                  by_kind.items(), key=lambda kv: -kv[1])},
-              "ms_per_unit_by_kind": {k: v / units for k, v in sorted(
-                  by_kind.items(), key=lambda kv: -kv[1])},
-              "top_kernels": [{"name": k[:80], "per_unit": n / units,
-                               "ms_per_unit": ms / units}
-                              for k, n, ms in top]})
+        steps), after the main path's counts were read, emitted as the
+        path's ``profile`` line (``utils/profile.py``: device time and
+        kernels per unit, the share of each kind of kernel, each port
+        kernel's time, the ten longest kernels, and the busy share against
+        the unprofiled wall time ``wall_ms_per_unit``).  A measurement,
+        not a check."""
+        emit({"phase": "profile", "path": path,
+              **self.profile.profile_pass(run, units, wall_ms_per_unit)})
 
     def vs_cpu(self, cfg32, state, images_np, infos_np, outs32, frames, path):
         """The f32 card run against the same slice on the CPU."""
@@ -733,6 +696,54 @@ class Port:
                     f"K4 {label} {dt}: {bad} outputs outside {tol}")
         return out
 
+    def chain_times(self, args, label):
+        """K4 in bf16 on one stage's inputs: the wrapper, its launches
+        alone (weights packed once; ``ms`` also packs them on every call),
+        eager and from a CUDA graph, its twin, its bound and the cuDNN
+        yardstick."""
+        torch = self.torch
+        x, w1 = args[0], args[1]
+        bf = torch.bfloat16
+        launch = self.bk.chain_launcher(*args, dtype=bf)
+        p_out = self.bk.bottleneck_chain_plain(*args, dtype=bf)
+        return {
+            "stage": label, "x": list(x.shape), "F": int(w1.shape[2]),
+            "blocks": int(w1.shape[0]),
+            "ms": time_ms(torch, lambda: self.bk.bottleneck_chain(
+                *args, dtype=bf), 20),
+            "launch_ms": time_ms(torch, launch, 20),
+            "launch_graph_ms": graph_ms(torch, launch, 20),
+            "plain_ms": time_ms(torch, lambda: self.bk.bottleneck_chain_plain(
+                *args, dtype=bf), 5),
+            **chain_bound(x, w1),
+            **library_times(torch, *chain_library(torch, *args), p_out,
+                            f"K4 {label}")}
+
+    def check_stem(self, x, k1, b1, k2, b2):
+        """K3 on one set of inputs, f32 (rtol=atol=1e-4) and bf16 (2 bf16
+        ulps).  Returns (max abs err, cases, the twin's bf16 output)."""
+        torch = self.torch
+        results, err_max = [], 0.0
+        for dt in (torch.float32, torch.bfloat16):
+            args = (x, k1.float(), b1.float(), k2.float(), b2.float())
+            k_out = self.sk.vgg_stem_fused(*args, dtype=dt).float()
+            p_out = self.sk.vgg_stem_plain(*args, dtype=dt).float()
+            err = (k_out - p_out).abs()
+            if dt == torch.float32:
+                bound = 1e-4 + 1e-4 * p_out.abs()
+                tol = "rtol=1e-4, atol=1e-4"
+            else:
+                bound = 2 * bf16_ulp(torch, p_out)
+                tol = "2 bf16 ulps (ulp at max(|plain|, 2^-10))"
+            bad = int((err > bound).sum().item())
+            err_max = max(err_max, float(err.max().item()))
+            results.append({"dtype": str(dt),
+                            "max_abs_err": float(err.max().item()),
+                            "outside_tolerance": bad, "tolerance": tol})
+            require(bad == 0, f"K3 {list(x.shape)} {dt}: {bad} outputs "
+                              f"outside {tol}")
+        return err_max, results, p_out
+
     def stem_times(self, x, k1, b1, k2, b2, plain_out):
         """K3 in bf16 on one set of inputs: the kernel, its twin, its
         bound and the cuDNN yardstick."""
@@ -870,8 +881,6 @@ class Port:
               "launches": launches,
               "launches_per_step": {k: v / steps for k, v in launches.items()},
               "peak_mem_bytes": peak})
-        import math
-
         finite = all(math.isfinite(v) for d in losses.values()
                      for v in d.values())
         require(finite, f"{path}: non-finite losses {losses}")
@@ -961,12 +970,7 @@ class Port:
                                                         out.detach()))
             return Recorder(module, name, call)
 
-        return [swap(self.vgg, "vgg_stem_fused", self.sk.vgg_stem_plain),
-                swap(self.roi_ops, "roi_align_contract",
-                     self.rk.roi_align_contract_plain),
-                swap(self.resnet, "bottleneck_chain",
-                     self.bk.bottleneck_chain_plain),
-                Recorder(self.nms, "nms_sorted", self.nk.nms_sorted_plain)]
+        return [swap(*site) for site in self.call_sites()]
 
     def grad_check(self, cfg32, state_dict, batch, path, nonzero, tgt=None):
         """One f32 step's gradients with the kernels against the same step
@@ -1209,79 +1213,13 @@ def vgg16_path(port, device, frames):
     infos = [torch.from_numpy(x).to(device) for x in infos_np]
 
     # One serving forward records the inputs each kernel gets on the path.
-    with Recorder(port.vgg, "vgg_stem_fused") as rec_stem, \
-            Recorder(port.nms, "nms_sorted") as rec_nms, \
-            Recorder(port.roi_ops, "roi_align_contract") as rec_roi:
-        port.detector.forward_inference(model16, images[0], infos[0], cfg16)
-    torch.cuda.synchronize()
-    require(len(rec_stem.calls) == 1 and len(rec_nms.calls) == 2
-            and len(rec_roi.calls) == 1,
-            f"unexpected kernel calls on the VGG16 path: stem "
-            f"{len(rec_stem.calls)}, nms {len(rec_nms.calls)}, roi "
-            f"{len(rec_roi.calls)}")
-    summary = {}
-
-    nms_err, nms_results = port.check_nms(rec_nms.calls,
-                                          ("proposals", "per_class"),
-                                          adversarial=True)
-    (sb, sv), kw = rec_nms.calls[0][0][:2], rec_nms.calls[0][1]
-    (cb, cv), ckw = rec_nms.calls[1][0][:2], rec_nms.calls[1][1]
-    summary["nms"] = {
-        "max_abs_err": float(nms_err),
-        "shape": list(sv.shape), "max_output": kw["max_output"],
-        **port.nms_times(sb, sv, kw, 3),
-        "library_ms": None, "library_reason": NO_LIBRARY,
-        # The second call of a served image: per-class NMS.
-        "per_class_shape": list(cv.shape),
-        "per_class_max_output": ckw["max_output"],
-        **{f"per_class_{k}": v
-           for k, v in port.nms_times(cb, cv, ckw, 3).items()},
-    }
-    emit({"phase": "kernel", "path": "vgg16", "kernel": "nms",
-          "cases": nms_results, **summary["nms"]})
-
-    roi_err, roi_results = port.check_roi(rec_roi.calls, ("path",), dense=True)
-    (wy, wx, feat16), _ = rec_roi.calls[0]
-    summary["roi_align"] = {
-        "max_abs_err": roi_err,
-        "ms": time_ms(torch, lambda: port.rk.roi_align_contract(
-            wy, wx, feat16), 20),
-        "plain_ms": time_ms(torch, lambda: port.rk.roi_align_contract_plain(
-            wy, wx, feat16), 20),
-        **roi_bound(wy, wx, feat16, rec_roi.results[0]),
-        "library_ms": None, "library_reason": NO_LIBRARY,
-    }
-    emit({"phase": "kernel", "path": "vgg16", "kernel": "roi_align",
-          "shape": {"wy": list(wy.shape), "wx": list(wx.shape),
-                    "feat": list(feat16.shape)},
-          "cases": roi_results, **summary["roi_align"]})
-
-    # K3: the path's image and stem weights, f32 and bf16.
-    (x, k1, b1, k2, b2), _ = rec_stem.calls[0]
-    stem_results = []
-    stem_err = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        args = (x, k1.float(), b1.float(), k2.float(), b2.float())
-        k_out = port.sk.vgg_stem_fused(*args, dtype=dt).float()
-        p_out = port.sk.vgg_stem_plain(*args, dtype=dt).float()
-        err = (k_out - p_out).abs()
-        if dt == torch.float32:
-            bound = 1e-4 + 1e-4 * p_out.abs()
-            tol = "rtol=1e-4, atol=1e-4"
-        else:
-            bound = 2 * bf16_ulp(torch, p_out)
-            tol = "2 bf16 ulps (ulp at max(|plain|, 2^-10))"
-        bad = int((err > bound).sum().item())
-        stem_err = max(stem_err, float(err.max().item()))
-        stem_results.append({"dtype": str(dt),
-                             "max_abs_err": float(err.max().item()),
-                             "outside_tolerance": bad, "tolerance": tol})
-        require(bad == 0, f"K3 {dt}: {bad} outputs outside {tol}")
-    summary["vgg_stem"] = {"max_abs_err": stem_err,
-                           **port.stem_times(x, k1, b1, k2, b2, p_out)}
-    emit({"phase": "kernel", "path": "vgg16", "kernel": "vgg_stem",
-          "shape": list(x.shape), "cases": stem_results,
-          **summary["vgg_stem"]})
+    recs = record_forward(port, model16, images[0], infos[0], cfg16)
+    calls = {k: len(r.calls) for k, r in recs.items()}
+    require(calls == {"nms": 2, "vgg_stem": 1, "roi_align": 1,
+                      "bottleneck_chain": 0},
+            f"unexpected kernel calls on the VGG16 path: {calls}")
+    summary = serving_checks(port, recs, "vgg16", adversarial=True,
+                             dense=True)
 
     # The main path: bf16 serving.
     launches = port.main_path(model16, cfg16, images, infos, VGG_REPEATS,
@@ -1312,43 +1250,20 @@ def res101_ms_path(port, device, frames):
     images = [torch.from_numpy(x).to(device) for x in images_np]
     infos = [torch.from_numpy(x).to(device) for x in infos_np]
 
-    with Recorder(port.resnet, "bottleneck_chain") as rec_chain, \
-            Recorder(port.nms, "nms_sorted") as rec_nms, \
-            Recorder(port.roi_ops, "roi_align_contract") as rec_roi:
-        port.detector.forward_inference(model16, images[0], infos[0], cfg16)
-    torch.cuda.synchronize()
-    require(len(rec_chain.calls) == 3 and len(rec_nms.calls) == 2
-            and len(rec_roi.calls) == 2,
-            f"unexpected kernel calls on the res101-ms path: chain "
-            f"{len(rec_chain.calls)}, nms {len(rec_nms.calls)}, roi "
-            f"{len(rec_roi.calls)}")
-    summary = {}
+    recs = record_forward(port, model16, images[0], infos[0], cfg16)
+    calls = {k: len(r.calls) for k, r in recs.items()}
+    require(calls == {"nms": 2, "vgg_stem": 0, "roi_align": 2,
+                      "bottleneck_chain": 3},
+            f"unexpected kernel calls on the res101-ms path: {calls}")
+    require([list(a[2].shape) for a, _ in recs["roi_align"].calls]
+            == [[1, 32, 64, 1024], [1, 64, 128, 1024]],
+            "K2 on the res101-ms path: unexpected feature shapes")
+    summary = serving_checks(port, recs, "res101_ms")
 
-    # K4: the three stages' inputs, then one undamped block at layer3's
-    # shape so that errors in the residual branch cannot hide.
-    chain_results, stage_times = [], []
-    for i, (args, _) in enumerate(rec_chain.calls):
-        x, w1 = args[0], args[1]
-        label = f"layer{i + 1}"
-        chain_results += port.check_chain(args, label, 2.0 ** -5)
-        launch = port.bk.chain_launcher(*args, dtype=torch.bfloat16)
-        p_out = port.bk.bottleneck_chain_plain(*args, dtype=torch.bfloat16)
-        stage_times.append({
-            "stage": label, "x": list(x.shape), "F": int(w1.shape[2]),
-            "blocks": int(w1.shape[0]),
-            "ms": time_ms(torch, lambda: port.bk.bottleneck_chain(
-                *args, dtype=torch.bfloat16), 20),
-            # The launches alone (weights packed once), eager and from a
-            # CUDA graph: ``ms`` also packs the weights on every call.
-            "launch_ms": time_ms(torch, launch, 20),
-            "launch_graph_ms": graph_ms(torch, launch, 20),
-            "plain_ms": time_ms(torch, lambda: port.bk.bottleneck_chain_plain(
-                *args, dtype=torch.bfloat16), 5),
-            **chain_bound(x, w1),
-            **library_times(torch, *chain_library(torch, *args), p_out,
-                            f"K4 {label}")})
-    x3 = rec_chain.calls[2][0][0]
-    c, f = x3.shape[-1], rec_chain.calls[2][0][1].shape[2]
+    # K4: one undamped block at layer3's shape, so that errors in the
+    # residual branch cannot hide.
+    x3, w3 = recs["bottleneck_chain"].calls[2][0][:2]
+    c, f = x3.shape[-1], w3.shape[2]
     g = torch.Generator().manual_seed(11)
 
     def he(*shape, fan_in):
@@ -1357,37 +1272,12 @@ def res101_ms_path(port, device, frames):
     dense = (x3, he(1, c, f, fan_in=c), he(1, 1, f, fan_in=400),
              he(1, 9, f, f, fan_in=9 * f), he(1, 1, f, fan_in=400),
              he(1, f, c, fan_in=f), he(1, 1, c, fan_in=400))
-    chain_results += port.check_chain(dense, "dense_layer3_n1", 2.0 ** -6)
-    summary["bottleneck_chain"] = {
-        "max_abs_err": max(r["max_abs_err"] for r in chain_results),
-        **{key: sum(s[key] for s in stage_times)
-           for key in ("ms", "launch_ms", "launch_graph_ms", "plain_ms",
-                       "bound_ms", "flops", "bytes", "library_ms",
-                       "library_graph_ms")},
-        "bound_by": max(stage_times, key=lambda s: s["bound_ms"])["bound_by"],
-        "stages": stage_times,
-    }
+    dense_results = port.check_chain(dense, "dense_layer3_n1", 2.0 ** -6)
+    chain = summary["bottleneck_chain"]
+    chain["max_abs_err"] = max([chain["max_abs_err"]]
+                               + [r["max_abs_err"] for r in dense_results])
     emit({"phase": "kernel", "path": "res101_ms", "kernel": "bottleneck_chain",
-          "cases": chain_results, **summary["bottleneck_chain"]})
-
-    nms_err, nms_results = port.check_nms(rec_nms.calls,
-                                          ("proposals", "per_class"))
-    roi_err, roi_results = port.check_roi(rec_roi.calls,
-                                          ("stride16", "stride8"))
-    require([list(a[2].shape) for a, _ in rec_roi.calls]
-            == [[1, 32, 64, 1024], [1, 64, 128, 1024]],
-            "K2 on the res101-ms path: unexpected feature shapes")
-    roi_times = [{"feat": list(a[2].shape),
-                  "ms": time_ms(torch, lambda: port.rk.roi_align_contract(
-                      *a), 20),
-                  "plain_ms": time_ms(torch, lambda: port.rk.
-                                      roi_align_contract_plain(*a), 20),
-                  **roi_bound(*a, out)}
-                 for (a, _), out in zip(rec_roi.calls, rec_roi.results)]
-    emit({"phase": "kernel", "path": "res101_ms", "kernel": "nms",
-          "cases": nms_results, "max_abs_err": float(nms_err)})
-    emit({"phase": "kernel", "path": "res101_ms", "kernel": "roi_align",
-          "cases": roi_results, "times": roi_times, "max_abs_err": roi_err})
+          "cases": dense_results})
 
     # The main path: bf16 serving.
     launches = port.main_path(model16, cfg16, images, infos, RES_REPEATS,
@@ -1425,16 +1315,17 @@ def res101_ms_path(port, device, frames):
     return summary, launches
 
 
-def train_kernel_checks(port, records, path):
-    """K1 at the training shape and the K2 backward, each against its
-    twin on the inputs one recorded train step gave it, with times."""
+def train_kernel_checks(port, records, path, tag="train"):
+    """K1 at the training shape, K3 at the train batch and the K2
+    backward, each against its twin on the inputs one recorded train step
+    gave it, with times.  ``tag`` prefixes the summary's keys."""
     torch = port.torch
     summary = {}
     nms_err, nms_results = port.check_nms(records["nms"], ("train_proposals",))
     (sb, sv), kw = records["nms"][0][0][:2], records["nms"][0][1]
     summary["nms"] = {
-        "train_shape": list(sv.shape), "train_max_output": kw["max_output"],
-        **{f"train_{k}": v for k, v in port.nms_times(sb, sv, kw, 2).items()}}
+        f"{tag}_shape": list(sv.shape), f"{tag}_max_output": kw["max_output"],
+        **{f"{tag}_{k}": v for k, v in port.nms_times(sb, sv, kw, 2).items()}}
     emit({"phase": "kernel", "path": path, "kernel": "nms",
           "cases": nms_results, "max_abs_err": float(nms_err),
           **summary["nms"]})
@@ -1450,8 +1341,8 @@ def train_kernel_checks(port, records, path):
                               f"outside 2 bf16 ulps")
             summary["vgg_stem"] = {
                 "max_abs_err": float(err.max().item()),
-                "train_shape": list(args[0].shape),
-                **{f"train_{k}": v for k, v in port.stem_times(
+                f"{tag}_shape": list(args[0].shape),
+                **{f"{tag}_{k}": v for k, v in port.stem_times(
                     *args, p_out).items()}}
         emit({"phase": "kernel", "path": path, "kernel": "vgg_stem",
               "tolerance": "2 bf16 ulps (ulp at max(|plain|, 2^-10))",
@@ -1659,12 +1550,8 @@ def vgg16_scda_path(port, device, frames):
             SCDA_WARMUP, SCDA_STEPS, want, record=True,
             tgt_batches=port.train_batches(tgt_frames, bs, device))
         del model
-        checks = scda_kernel_checks(port, records, cfg, f"scda_bs{bs}")
-        for kernel, values in checks.items():
-            into = summary.setdefault(kernel, {})
-            err = max(into.get("max_abs_err", 0.0),
-                      values.get("max_abs_err", 0.0))
-            into.update(values, max_abs_err=err)
+        merge_summaries(summary, scda_kernel_checks(port, records, cfg,
+                                                    f"scda_bs{bs}"))
         del records
 
     # BASELINE config #4's shape: one foreground class, a class-agnostic
@@ -1997,6 +1884,202 @@ def vgg16_surface_path(port, device, frames):
     return {}, {"vgg16_surface": launches}
 
 
+# bench_torch.py's configs whose batch shapes no other path runs, and the
+# launches one unit of each makes.
+BENCH_UNITS = {
+    "inference_bs8": {"nms": 2, "roi_align": 1, "roi_align_bwd": 0,
+                      "vgg_stem": 1, "bottleneck_chain": 0},
+    "res101_bs8": {"nms": 2, "roi_align": 2, "roi_align_bwd": 0,
+                   "vgg_stem": 0, "bottleneck_chain": 3},
+    "train_bs16": {"nms": 1, "roi_align": 1, "roi_align_bwd": 1,
+                   "vgg_stem": 1, "bottleneck_chain": 0},
+    "scda_car_bs8": {"nms": 2, "roi_align": 3, "roi_align_bwd": 3,
+                     "vgg_stem": 2, "bottleneck_chain": 0},
+}
+
+
+def serving_checks(port, recs, path, prefix="", adversarial=False,
+                   dense=False):
+    """K1 (proposals and per class), K2 on each level, K3 and K4 per
+    stage, each against its twin on the inputs one recorded bf16 forward
+    gave it (``record_forward``), with times, bounds and (K3, K4) cuDNN's
+    yardstick.  ``adversarial`` adds K1's tied-score case, ``dense`` K2's
+    dense weights; ``prefix`` goes before every summary key but
+    ``max_abs_err``."""
+    torch = port.torch
+
+    def keyed(values):
+        return {prefix + k: v for k, v in values.items()}
+
+    summary = {}
+    calls = recs["nms"].calls
+    nms_err, nms_results = port.check_nms(calls, ("proposals", "per_class"),
+                                          adversarial=adversarial)
+    (sb, sv), kw = calls[0][0][:2], calls[0][1]
+    (cb, cv), ckw = calls[1][0][:2], calls[1][1]
+    summary["nms"] = {"max_abs_err": float(nms_err), **keyed({
+        "shape": list(sv.shape), "max_output": kw["max_output"],
+        **port.nms_times(sb, sv, kw, 2),
+        "library_ms": None, "library_reason": NO_LIBRARY,
+        # The second call of a served image: per-class NMS.
+        "per_class_shape": list(cv.shape),
+        "per_class_max_output": ckw["max_output"],
+        **{f"per_class_{k}": v
+           for k, v in port.nms_times(cb, cv, ckw, 2).items()}})}
+    emit({"phase": "kernel", "path": path, "kernel": "nms",
+          "cases": nms_results, **summary["nms"]})
+
+    calls = recs["roi_align"].calls
+    roi_err, roi_results = port.check_roi(
+        calls, ("stride16", "stride8")[:len(calls)], dense=dense)
+    roi_times = [{"feat": list(a[2].shape),
+                  "ms": time_ms(torch, lambda: port.rk.roi_align_contract(
+                      *a), 20),
+                  "plain_ms": time_ms(torch, lambda: port.rk.
+                                      roi_align_contract_plain(*a), 5),
+                  **roi_bound(*a, out)}
+                 for (a, _), out in zip(calls, recs["roi_align"].results)]
+    summary["roi_align"] = {"max_abs_err": roi_err, **keyed({
+        **roi_times[0], "library_ms": None, "library_reason": NO_LIBRARY,
+        "levels": roi_times})}
+    emit({"phase": "kernel", "path": path, "kernel": "roi_align",
+          "cases": roi_results, **summary["roi_align"]})
+
+    for (x, k1, b1, k2, b2), _ in recs["vgg_stem"].calls:
+        err, results, p_out = port.check_stem(x, k1, b1, k2, b2)
+        summary["vgg_stem"] = {"max_abs_err": err, **keyed({
+            "shape": list(x.shape),
+            **port.stem_times(x, k1, b1, k2, b2, p_out)})}
+        emit({"phase": "kernel", "path": path, "kernel": "vgg_stem",
+              "cases": results, **summary["vgg_stem"]})
+
+    if recs["bottleneck_chain"].calls:
+        results, stages = [], []
+        for i, (args, _) in enumerate(recs["bottleneck_chain"].calls):
+            results += port.check_chain(args, f"layer{i + 1}", 2.0 ** -5)
+            stages.append(port.chain_times(args, f"layer{i + 1}"))
+        summary["bottleneck_chain"] = {
+            "max_abs_err": max(r["max_abs_err"] for r in results), **keyed({
+                **{key: sum(s[key] for s in stages)
+                   for key in ("ms", "launch_ms", "launch_graph_ms",
+                               "plain_ms", "bound_ms", "flops", "bytes",
+                               "library_ms", "library_graph_ms")},
+                "bound_by": max(stages,
+                                key=lambda s: s["bound_ms"])["bound_by"],
+                "stages": stages})}
+        emit({"phase": "kernel", "path": path, "kernel": "bottleneck_chain",
+              "cases": results, **summary["bottleneck_chain"]})
+    return summary
+
+
+def forward_recorders(port):
+    """A ``Recorder`` on each forward kernel's call site."""
+    return {"nms": Recorder(port.nms, "nms_sorted"),
+            "vgg_stem": Recorder(port.vgg, "vgg_stem_fused"),
+            "roi_align": Recorder(port.roi_ops, "roi_align_contract"),
+            "bottleneck_chain": Recorder(port.resnet, "bottleneck_chain")}
+
+
+def record_forward(port, model, image, info, cfg):
+    """One serving forward, recording the inputs each kernel gets."""
+    recs = forward_recorders(port)
+    with contextlib.ExitStack() as stack:
+        for rec in recs.values():
+            stack.enter_context(rec)
+        port.detector.forward_inference(model, image, info, cfg)
+    port.torch.cuda.synchronize()
+    return recs
+
+
+def merge_summaries(into, summary):
+    """Adds one path's (or one unit's) kernel summaries to ``into``: the
+    largest ``max_abs_err``, and each other key as first seen."""
+    for kernel, values in summary.items():
+        slot = into.setdefault(kernel, {})
+        for key, value in values.items():
+            slot[key] = (max(slot.get(key, 0.0), value)
+                         if key == "max_abs_err" else slot.get(key, value))
+
+
+def bench_batches_path(port, device, frames):
+    """One unit each of four ``bench_torch.py`` configs at batch shapes no
+    other path runs: ``inference_bs8`` and ``res101_bs8`` (one bf16
+    forward of 8 frames), ``train_bs16`` (one VGG16 step at bs 16) and
+    ``scda_car_bs8`` (one car-only alternating SCDA step at bs 8), built by
+    the bench itself (its configs, seeded weights and first input batch)
+    at 512x1024, full width and depth.  Every launch count is set to 0
+    just before each unit and read just after (the path's launches are
+    their sum); then each kernel is held against its twin on the inputs
+    its unit gave it: K1 at (8, 6000) -> 300 and per class, (16, 12000)
+    -> 2000 and the target tower's (8, 12000) -> 300; K2 forward at B=8
+    on both pyramid levels and on the mined regions; K3 at B=8 (serving)
+    and B=16; K4 per stage at B=8; the K2 backward at bs 16 and on the
+    mined regions at bs 8."""
+    import bench_torch
+
+    torch = port.torch
+    total = {k: 0 for k in port.wrappers}
+    summary = {}
+    for name, want in BENCH_UNITS.items():
+        cfg = bench_torch.config_for(name)
+        work = bench_torch.workload(name, device, cfg, inputs=1)
+        recs = {**forward_recorders(port),
+                "roi_align_bwd": Recorder(port.rk, "roi_align_contract_bwd"),
+                "mined": Recorder(port.scda, "mine_regions")}
+        with contextlib.ExitStack() as stack:
+            for rec in recs.values():
+                stack.enter_context(rec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w in port.wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            out = work.unit(0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts(port)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for k, v in launches.items():
+            total[k] += v
+        if isinstance(out, dict):
+            result = {k: float(v) for k, v in out.items()}
+            require(all(math.isfinite(v) for v in result.values()),
+                    f"bench_batches {name}: non-finite metrics {result}")
+        else:
+            result = port.check_dets([out])
+        emit({"phase": "bench_unit", "path": "bench_batches", "config": name,
+              "batch_size": work.images_per_unit, "dtype": "bfloat16",
+              "seconds_first_call": seconds, "launches": launches,
+              "peak_mem_gb": peak, "result": result})
+        require(launches == want,
+                f"bench_batches {name}: launches {launches}, expected {want}")
+
+        tag = f"bench_{name}"
+        if name == "train_bs16":
+            with torch.no_grad():
+                fwd = [((wy.detach(), wx.detach(), feat.detach()), {})
+                       for (wy, wx, feat), _ in recs["roi_align"].calls]
+                roi_err, roi_results = port.check_roi(fwd, ("rois",))
+            emit({"phase": "kernel", "path": tag, "kernel": "roi_align",
+                  "cases": roi_results, "max_abs_err": roi_err})
+            checks = train_kernel_checks(
+                port, {k: recs[k].calls for k in
+                       ("nms", "vgg_stem", "roi_align_bwd")}, tag, tag)
+            checks["roi_align"] = {"max_abs_err": roi_err}
+        elif name == "scda_car_bs8":
+            records = {k: recs[k].calls for k in
+                       ("nms", "roi_align", "roi_align_bwd")}
+            records["mined"] = recs["mined"].results
+            checks = scda_kernel_checks(port, records, cfg, tag)
+        else:
+            with torch.no_grad():
+                checks = serving_checks(port, recs, tag, f"{tag}_")
+        merge_summaries(summary, checks)
+        del work, recs, out
+        torch.cuda.empty_cache()
+    return summary, {"bench_batches": total}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "scda_tpu_torch")):
@@ -2040,7 +2123,8 @@ def main() -> int:
              ("vgg16_train", vgg16_train_path),
              ("res101_ms_train", res101_ms_train_path),
              ("vgg16_scda", vgg16_scda_path),
-             ("vgg16_surface", vgg16_surface_path))
+             ("vgg16_surface", vgg16_surface_path),
+             ("bench_batches", bench_batches_path))
     only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
     require(only is None or set(only) <= {n for n, _ in paths},
             f"--only takes a comma-separated subset of {[n for n, _ in paths]}")
@@ -2054,11 +2138,7 @@ def main() -> int:
         if serving:
             by_path = {name: by_path}
         launches.update(by_path)
-        for kernel, values in summary.items():   # the first path's times
-            into = summaries.setdefault(kernel, {})
-            for key, value in values.items():
-                into[key] = (max(into.get(key, 0.0), value)
-                             if key == "max_abs_err" else into.get(key, value))
+        merge_summaries(summaries, summary)   # the first path's times
         timings[name] = time.perf_counter() - t0
         emit({"phase": "path_done", "path": name, "seconds": timings[name]})
         torch.cuda.empty_cache()

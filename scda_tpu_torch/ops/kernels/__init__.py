@@ -3,3 +3,39 @@
 Each module holds one kernel's wrapper, its twin of the same signature,
 and a launch counter on the wrapper (``<wrapper>.launches``).
 """
+
+from __future__ import annotations
+
+import contextlib
+
+
+def call_sites():
+    """(module, name, twin) for each forward wrapper at the name the
+    port's modules call it through: the places where a caller swaps a
+    wrapper for its plain twin."""
+    from scda_tpu_torch.models.backbones import resnet, vgg
+    from scda_tpu_torch.ops import nms, roi_ops
+    from scda_tpu_torch.ops.kernels import (
+        bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel,
+    )
+
+    return ((vgg, "vgg_stem_fused", stem_kernel.vgg_stem_plain),
+            (roi_ops, "roi_align_contract",
+             roi_align_kernel.roi_align_contract_plain),
+            (resnet, "bottleneck_chain", bottleneck_kernel.bottleneck_chain_plain),
+            (nms, "nms_sorted", nms_kernel.nms_sorted_plain))
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Inside the block every kernel's call site takes its plain twin, on
+    every device: the reference a kernel path is held against."""
+    sites = call_sites()
+    saved = [getattr(module, name) for module, name, _ in sites]
+    try:
+        for module, name, twin in sites:
+            setattr(module, name, twin)
+        yield
+    finally:
+        for (module, name, _), orig in zip(sites, saved):
+            setattr(module, name, orig)

@@ -199,12 +199,12 @@ def test_stem_kernel_bf16_y1_exact(cuda):
 
 @pytest.mark.parametrize("shape", [
     (1, 2, 2), (2, 18, 10), (1, 34, 50), (3, 22, 70), (1, 64, 128),
-    (8, 40, 56), (8, 512, 1024),
+    (8, 40, 56), (8, 512, 1024), (16, 512, 1024),
 ])
 def test_stem_kernel_matches_twin_bf16(cuda, shape):
     """bf16, where conv1_2 runs on the tensor cores: ragged even sizes
     (tiles cut at the right and bottom edges), a batch of 8, and the
-    training path's shape.  conv1_2's f32 sums are taken in another order
+    training path's shapes at bs 8 and 16 (``bench_torch.py`` train_bs16).  conv1_2's f32 sums are taken in another order
     than the twin's, so a rounding may flip: within 2 bf16 ulps."""
     b, h, w = shape
     rng = np.random.RandomState(h * w + b)
@@ -261,6 +261,8 @@ def test_bottleneck_chain_kernel_matches_twin(cuda, dtype, b, h, w, f, n):
 @pytest.mark.parametrize("b,h,w,f,n,damp", [
     (1, 128, 256, 64, 2, 0.3), (1, 64, 128, 128, 3, 0.3),
     (1, 32, 64, 256, 22, 0.1),      # the ResNet-101 stages at 512x1024
+    (8, 128, 256, 64, 2, 0.3), (8, 64, 128, 128, 3, 0.3),
+    (8, 32, 64, 256, 22, 0.1),      # ... served at bs 8 (res101_bs8)
     (1, 31, 33, 256, 2, 0.3),       # M = 1023: a cut tile under a 128-wide expand
     (1, 75, 101, 128, 1, 1.0),      # M = 7575: a cut tile, 128-wide throughout
 ])
@@ -360,6 +362,21 @@ def test_nms_kernel_matches_twin_at_the_training_shape(cuda):
     keep = nms_kernel.nms_sorted(boxes, valid, **kw)
     assert torch.equal(keep, nms_kernel.nms_sorted_plain(boxes, valid, **kw))
     assert int(keep.sum()) == 4000
+
+
+@pytest.mark.parametrize("b,n,max_out", [(8, 6000, 300), (16, 12000, 2000)])
+def test_nms_kernel_matches_twin_at_the_bench_batch_shapes(cuda, b, n,
+                                                           max_out):
+    """The proposal NMS of ``bench_torch.py``'s inference_bs8 (8 rows of
+    6000 -> 300) and train_bs16 (16 rows of 12000 -> 2000, 188 words a
+    row in the mask pass), at 0.7 on proposal-like boxes."""
+    rng = np.random.RandomState(b * n)
+    boxes = torch.from_numpy(_boxes(rng, b, n, spread=900.0)).to(cuda)
+    valid = torch.from_numpy(rng.rand(b, n) < 0.95).to(cuda)
+    kw = dict(iou_threshold=0.7, max_output=max_out)
+    keep = nms_kernel.nms_sorted(boxes, valid, **kw)
+    assert torch.equal(keep, nms_kernel.nms_sorted_plain(boxes, valid, **kw))
+    assert int(keep.sum()) == b * max_out
 
 
 def _bf16_ulp(v):

@@ -553,13 +553,13 @@ def test_port_imports_no_jax(tmp_path):
 
 
 def test_port_sources_name_no_jax_package():
-    """No file of the port, and not ``chip_smoke.py``, imports the JAX
-    package: no ``import scda_tpu`` or ``from scda_tpu`` followed by a
-    dot, a space or the end of the line."""
+    """No file of the port, and neither ``chip_smoke.py`` nor
+    ``bench_torch.py``, imports the JAX package: no ``import scda_tpu`` or
+    ``from scda_tpu`` followed by a dot, a space or the end of the line."""
     import re
 
     pattern = re.compile(r"\b(?:import|from)\s+scda_tpu(?:[.\s]|$)", re.M)
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "bench_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "scda_tpu_torch")):
         paths += [os.path.join(root, f) for f in files
                   if f.endswith((".py", ".cu", ".cuh", ".cc"))]

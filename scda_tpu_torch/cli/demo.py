@@ -119,18 +119,17 @@ def main(argv=None) -> int:
     from PIL import Image
 
     from scda_tpu_torch.data.pipeline import load_image
-    from scda_tpu_torch.models.faster_rcnn import build_model
+    from scda_tpu_torch.models.faster_rcnn import empty_model, init_params
     from scda_tpu_torch.train import checkpoint as ckpt
     from scda_tpu_torch.train.steps import make_eval_step
 
-    model = build_model(cfg.model, cfg.anchors.num_anchors,
-                        generator=torch.Generator().manual_seed(0),
-                        device=device)
+    model = empty_model(cfg.model, cfg.anchors.num_anchors, device=device)
     if ckpt.latest_step(run_dir) is not None:
         payload = ckpt.load_payload(run_dir)
         model.load_state_dict(payload["model"])
         print(f"loaded checkpoint step {payload['step']} from {run_dir}")
     else:
+        init_params(model, torch.Generator().manual_seed(0))
         print(f"WARNING: no checkpoint under {run_dir}; random weights",
               file=sys.stderr)
     step = make_eval_step(model, cfg)

@@ -209,12 +209,11 @@ def _evaluate(world, device, args, cfg, dataset, run_dir, state_kind) -> int:
     from scda_tpu_torch.bridge import load_reference_checkpoint
     from scda_tpu_torch.evals.detect import run_inference
     from scda_tpu_torch.evals.voc_eval import evaluate_detections
-    from scda_tpu_torch.models.faster_rcnn import build_model
+    from scda_tpu_torch.models.faster_rcnn import empty_model, init_params
     from scda_tpu_torch.train import checkpoint as ckpt
 
-    model = build_model(cfg.model, cfg.anchors.num_anchors,
-                        generator=torch.Generator().manual_seed(0),
-                        device=device)
+    # Every branch below sets every entry (the loads are strict).
+    model = empty_model(cfg.model, cfg.anchors.num_anchors, device=device)
     if args.torch_checkpoint:
         payload = load_reference_checkpoint(
             model, args.torch_checkpoint,
@@ -230,9 +229,11 @@ def _evaluate(world, device, args, cfg, dataset, run_dir, state_kind) -> int:
         model.load_state_dict(payload["model"])
         kind = "SCDA checkpoint" if state_kind == "scda" else "checkpoint"
         print(f"loaded {kind} step {payload['step']} from {run_dir}")
-    elif world is None or world.is_main:
-        print(f"WARNING: no checkpoint under {run_dir}; evaluating random "
-              "init", file=sys.stderr)
+    else:
+        init_params(model, torch.Generator().manual_seed(0))
+        if world is None or world.is_main:
+            print(f"WARNING: no checkpoint under {run_dir}; evaluating "
+                  "random init", file=sys.stderr)
 
     all_dets, ips = run_inference(model, dataset, cfg, device=device,
                                   batch_size=args.bs, progress=True,

@@ -263,7 +263,7 @@ def _train(world, device, args, cfg, dataset, tgt_dataset) -> int:
 
     from scda_tpu_torch.bridge import load_reference_checkpoint
     from scda_tpu_torch.data.pipeline import DataLoader
-    from scda_tpu_torch.models.faster_rcnn import build_model, init_weights
+    from scda_tpu_torch.models.faster_rcnn import empty_model, init_params
     from scda_tpu_torch.parallel.mesh import ShardedDataLoader
     from scda_tpu_torch.train import checkpoint as ckpt
     from scda_tpu_torch.train.state import create_train_state
@@ -277,12 +277,11 @@ def _train(world, device, args, cfg, dataset, tgt_dataset) -> int:
             return DataLoader(ds, cfg.data, args.bs, seed=seed)
         return ShardedDataLoader(ds, cfg.data, args.bs, seed=seed, world=world)
 
-    # Seeded init with the first conv scaled to mean-subtracted 0-255
-    # pixels, then a pretrained backbone, unless a whole detector is
-    # loaded (the JAX CLI's order).
-    model = build_model(cfg.model, cfg.anchors.num_anchors, device="cpu")
-    init_weights(model, torch.Generator().manual_seed(cfg.train.seed),
-                 input_scale=1.0 / 64)
+    # The JAX package's init distributions from the train seed, then a
+    # pretrained backbone, unless a whole detector is loaded (the JAX
+    # CLI's order).
+    model = empty_model(cfg.model, cfg.anchors.num_anchors)
+    init_params(model, torch.Generator().manual_seed(cfg.train.seed))
     if args.pretrained:
         from scda_tpu_torch.train.torch_convert import load_pretrained_backbone
 

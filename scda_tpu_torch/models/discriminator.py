@@ -12,11 +12,11 @@ parameters and the logits are float32.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from scda_tpu_torch.models.faster_rcnn import lecun_normal_
 
 
 class PatchDiscriminator(nn.Module):
@@ -42,10 +42,5 @@ def init_discriminator_weights(d_model: PatchDiscriminator,
     standard deviations (flax's ``lecun_normal`` default), zero biases."""
     with torch.no_grad():
         for mod in (d_model.conv1, d_model.conv2, d_model.conv3, d_model.fc):
-            fan_in = mod.weight[0].numel()
-            # Stddev of a unit normal truncated at +-2, as flax corrects it.
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            w = torch.empty(mod.weight.shape)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-            mod.weight.copy_(w * std)
+            lecun_normal_(mod.weight, generator)
             mod.bias.zero_()

@@ -226,7 +226,9 @@ def pool_fine_raw(f8: torch.Tensor, rois: torch.Tensor,
 
 def init_weights(model: FasterRCNN, generator: torch.Generator,
                  *, input_scale: float = 1.0, he_heads: bool = False) -> None:
-    """Seeded random init, in place.
+    """Seeded random init, in place: the weights of the comparisons
+    (``chip_smoke.py``, ``bench_torch.py``).  The trainer, and the CLIs
+    without a checkpoint, start from :func:`init_params` instead.
 
     Convs and the fc head: He-normal (std sqrt(2 / fan_in)), zero bias.
     The first conv is scaled by ``input_scale`` (e.g. 1/64 for raw
@@ -270,6 +272,72 @@ def init_weights(model: FasterRCNN, generator: torch.Generator,
             mod.weight.copy_(w)
             if mod.bias is not None:
                 mod.bias.zero_()
+
+
+# Stddev of a unit normal truncated at +-2: flax's ``lecun_normal``
+# divides by it so that the truncated draw keeps variance 1 / fan_in.
+_TRUNC2_STD = 0.87962566103423978
+
+
+def truncated_normal_(weight: torch.Tensor, std: float,
+                      generator: torch.Generator) -> None:
+    """``weight`` <- N(0, 1) truncated at +-2, times ``std``, in place
+    (``jax.nn.initializers.truncated_normal``)."""
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    weight.copy_(w * std)
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``, in place: a normal truncated at two
+    standard deviations, scaled to variance 1 / fan_in (``weight`` laid
+    out output first, as conv and linear weights are)."""
+    truncated_normal_(weight, math.sqrt(1.0 / weight[0].numel()) / _TRUNC2_STD,
+                      generator)
+
+
+def init_params(model: FasterRCNN, generator: torch.Generator) -> None:
+    """The JAX package's ``init_params`` distributions, in place.
+
+    Every conv and linear layer: flax's ``lecun_normal`` (a normal
+    truncated at two standard deviations, scaled to variance 1 / fan_in),
+    zero bias.  ``RCNN_cls_score`` / ``RCNN_bbox_pred``: N(0, 0.01) /
+    N(0, 0.001), truncated at two standard deviations when
+    ``model.truncated_init`` is set (``jax.nn.initializers.
+    truncated_normal``).  Frozen BatchNorms: weight 1, bias 0, mean 0,
+    variance 1.  The draws are this generator's, not JAX's.
+    """
+    heads = {"RCNN_cls_score": 0.01, "RCNN_bbox_pred": 0.001}
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, FrozenBatchNorm2d):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+                continue
+            if not isinstance(mod, (nn.Conv2d, nn.Linear)):
+                continue
+            if name not in heads:
+                lecun_normal_(mod.weight, generator)
+            elif model.cfg.truncated_init:
+                truncated_normal_(mod.weight, heads[name], generator)
+            else:
+                mod.weight.copy_(torch.randn(mod.weight.shape,
+                                             generator=generator) * heads[name])
+            if mod.bias is not None:
+                mod.bias.zero_()
+
+
+def empty_model(cfg: ModelConfig, num_anchors: int = 9, *,
+                device: torch.device | str = "cpu") -> FasterRCNN:
+    """FasterRCNN on ``device`` laid out as :func:`build_model` lays it
+    out, its parameters and buffers allocated but not set: for a caller
+    that loads a whole state dict or calls :func:`init_params` next."""
+    with torch.device("meta"):
+        model = FasterRCNN(cfg, num_anchors)
+    return model.to_empty(device=device).to(
+        memory_format=torch.channels_last).eval()
 
 
 def build_model(cfg: ModelConfig, num_anchors: int = 9, *,

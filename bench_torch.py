@@ -94,6 +94,7 @@ from scda_tpu_torch.train.steps import (
     make_train_step, scda_step_generators, step_generators,
 )
 from scda_tpu_torch.utils import flops as F
+from scda_tpu_torch.utils.numerics import set_card_numerics
 from scda_tpu_torch.utils.profile import profile_pass
 
 HEADLINE = "inference_bs1"
@@ -599,8 +600,7 @@ def main(argv=None) -> int:
     smi = nvidia_smi_line()
     name, _, limit = smi.partition(", ")
     print(smi, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_card_numerics()
     card = {"name": name, "power_limit": limit,
             "device": torch.cuda.get_device_name(0)}
     _, rc = run(names, torch.device("cuda", 0), card)

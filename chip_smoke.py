@@ -74,7 +74,9 @@ non-zero:
      and 16, K3 at B=8 and 16, K4 per stage at B=8), with times;
   9. learning — the JAX package's learning oracle (``tests/test_overfit.py``:
      tiny, 4 scenes, 200 f32 steps, mAP > 0.3; its first 20 losses held
-     to the same run on the CPU) and its SCDA adaptation A/B
+     to the same run on the CPU; its first 20 steps run again on the
+     card, with the first run's proposals and with its own, bit-equal
+     to the first run) and its SCDA adaptation A/B
      (``scripts/scda_ab_demo.sh``: VGG16 source stage of 400 steps, then
      control and SCDA arms of 150 steps at seeds 3, 4 and 5, through
      ``cli.trainval.main`` and ``cli.test_net.main``, 32 val scenes
@@ -82,7 +84,18 @@ non-zero:
      0.20), with the JAX package's accuracies beside them in one
      ``learning`` line; then 20 joint SCDA steps of ResNet-101
      multiscale from the trainer's init (K4 in every step, peak memory,
-     K4's remat backward timed per stage).
+     K4's remat backward timed per stage, 5 steps twice bit-equal);
+ 10. car     — ``scripts/scda_car_ab.sh`` through the same CLIs: one
+     class (``--synth_classes car``), a class-agnostic box head, the
+     SCDA arms alternating D/G updates, seeds 3-5, 32 val scenes, the
+     A/B's gates; its SCDA arm at seed 3 runs twice with equal logged
+     metrics, checkpoints and mAPs; the JAX package's numbers beside.
+
+Every process-wide setting comes from ``set_card_numerics()``
+(``scda_tpu_torch/utils/numerics.py``), called before the build: TF32
+off, deterministic algorithms and cuDNN.  So a train path runs twice
+from one init and seeds gives the same bits: VGG16 at bs 8 (phase 5)
+and res101-ms SCDA (phase 9), 5 steps twice, are gated on it.
 
 The ``slice`` and ``train`` lines carry ``model_flops_per_image``
 (``utils/flops.py``) and ``mfu``, img/s times those FLOPs over the bf16
@@ -92,7 +105,7 @@ The last lines are the ``nvidia-smi`` line, the kernels summary and
 ``{"ok": true, "device": {...}}``.  While working on one path,
 ``python3 chip_smoke.py --only vgg16_scda`` (a comma-separated subset of
 ``vgg16,res101_ms,vgg16_train,res101_ms_train,vgg16_scda,vgg16_surface,
-bench_batches,learning``) runs just
+bench_batches,learning,car``) runs just
 that and ends with ``{"ok": false, "partial": [...]}``: only the run
 with no arguments is the check.  It imports nothing of JAX and nothing
 of the JAX package.
@@ -160,17 +173,45 @@ AB_LOSS_WINDOW = 50
 AB_JAX = {"source_clean": {"round2": 0.209, "round3": 0.729},
           "control": {"clean": 0.620, "fog0.3": 0.288},
           "scda": {"clean": 0.618, "fog0.3": 0.274}}
+# The two protocols through the CLIs: what each adds to every trainval
+# call (``train``), to its ``--set`` (``set``, and ``scda_set`` in the
+# SCDA arm) and to every test_net call (``eval``); the JAX package's
+# accuracies beside them; the seed whose SCDA arm runs twice.
+# ``scripts/scda_car_ab.sh`` is BASELINE config #4's shape: one class,
+# a class-agnostic box head, alternating D/G updates.
+CAR_CLASSES = ["--synth_classes", "car"]
+PROTOCOLS = {
+    "learning_ab": {"script": "scripts/scda_ab_demo.sh", "train": [],
+                    "set": [], "scda_set": [], "eval": [], "jax": AB_JAX,
+                    "rerun_seed": None},
+    "car": {"script": "scripts/scda_car_ab.sh", "train": CAR_CLASSES,
+            "set": ["model.class_agnostic", "True"],
+            "scda_set": ["adapt.d_update", "alternating"],
+            "eval": CAR_CLASSES,
+            # RESULTS.md, "Car-only protocol exercise" (TPU, 8 scenes).
+            "jax": {"control": {"clean": 0.606, "fog0.3": 0.697},
+                    "scda": {"clean": 0.728, "fog0.3": 0.667}},
+            "rerun_seed": 3},
+}
+RERUN_STEPS = 5              # the runs-twice gates of the train paths
 RES_SCDA_STEPS = 20
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): the yardstick of every ``bound_ms`` below.
 PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 operands
 PEAK_F32_FLOPS = 67e12       # CUDA cores, f32 operands
 PEAK_BYTES_PER_S = 3.35e12   # device memory
-NO_LIBRARY = ("no single PyTorch call computes it (torchvision's nms and "
-              "roi_align are absent)")
+NO_LIBRARY = ("no single PyTorch call computes greedy NMS (torchvision's "
+              "nms is absent)")
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started, which say where a run's time went."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -355,6 +396,21 @@ def library_times(torch, run, to_nhwc, plain_out, what):
     return {"library_ms": time_ms(torch, run, 20),
             "library_graph_ms": graph_ms(torch, run, 20),
             "library_max_abs_err": err}
+
+
+K2_EINSUM = "brph,brqw,bhwc->brpqc"        # the forward
+K2_BWD_EINSUM = "brph,brqw,brpqc->bhwc"    # the backward
+
+
+def einsum_library(torch, spec, wy, wx, x, plain_out, what):
+    """K2's yardstick, forward or backward: one three-operand
+    ``torch.einsum`` of the same function on the same inputs (bf16
+    features cast to f32 once, outside the timing: einsum takes one
+    dtype; its output is f32)."""
+    x = x.float()
+    return {**library_times(torch, lambda: torch.einsum(spec, wy, wx, x),
+                            lambda t: t, plain_out, what),
+            "library_call": f"torch.einsum('{spec}')"}
 
 
 def make_frames(cfg, n, seed, fog=0.0, classes=None):
@@ -853,6 +909,19 @@ class Port:
                 self.step_generators(cfg.train.seed, 0, batch[0].device))
         return {k: float(v) for k, v in out.metrics.items()}
 
+    def train_step(self, cfg, model, adapt):
+        """(state, step) of the source-only train step or, with ``adapt``,
+        of the SCDA step (``cfg.adapt.d_update``) with a discriminator
+        seeded from the config."""
+        state = self.create_train_state(cfg, model, steps_per_epoch=1000)
+        if not adapt:
+            return state, self.make_train_step(model, cfg)
+        d_model = self.scda.init_discriminator(
+            cfg, self.torch.Generator().manual_seed(cfg.train.seed + 1),
+            next(model.parameters()).device)
+        return (self.scda.create_scda_state(cfg, state, d_model),
+                self.scda.make_scda_train_step(model, d_model, cfg))
+
     def train_run(self, cfg, model, batches, path, warmup, steps,
                   want_per_step, record=False, tgt_batches=None,
                   on_step=None):
@@ -866,15 +935,7 @@ class Port:
         records)."""
         torch = self.torch
         bs = batches[0][0].shape[0]
-        state = self.create_train_state(cfg, model, steps_per_epoch=1000)
-        if tgt_batches is None:
-            step = self.make_train_step(model, cfg)
-        else:
-            d_model = self.scda.init_discriminator(
-                cfg, torch.Generator().manual_seed(cfg.train.seed + 1),
-                batches[0][0].device)
-            state = self.scda.create_scda_state(cfg, state, d_model)
-            step = self.scda.make_scda_train_step(model, d_model, cfg)
+        state, step = self.train_step(cfg, model, tgt_batches is not None)
 
         def run(state, i):
             tgt = tgt_batches[i % len(tgt_batches)] if tgt_batches else ()
@@ -1384,6 +1445,46 @@ def res101_ms_path(port, device, frames):
     return summary, launches
 
 
+def runs_twice(port, cfg, make_model, batches, what, tgt_batches=None):
+    """``RERUN_STEPS`` steps of the train step (the SCDA step with
+    ``tgt_batches``) from ``make_model()``'s weights and the config's
+    seeds, twice on the card.  Gate: every step's metrics and every
+    parameter at the end (the discriminator's too) bit-equal."""
+    torch = port.torch
+    runs = []
+    for _ in range(2):
+        model = make_model()
+        state, step = port.train_step(cfg, model, tgt_batches is not None)
+        metrics = []
+        for i in range(RERUN_STEPS):
+            tgt = tgt_batches[i % len(tgt_batches)] if tgt_batches else ()
+            state, m = step(state, *batches[i % len(batches)], *tgt)
+            metrics.append({k: float(v) for k, v in m.items()})
+        params = {f"detector.{n}": p.detach().clone()
+                  for n, p in model.named_parameters()}
+        if tgt_batches:
+            params.update({f"D.{n}": p.detach().clone()
+                           for n, p in state.d_model.named_parameters()})
+        runs.append((metrics, params))
+        del model, state, step
+        torch.cuda.empty_cache()
+    (m1, p1), (m2, p2) = runs
+    unequal = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+    out = {"what": what, "steps": RERUN_STEPS,
+           "batch_size": int(batches[0][0].shape[0]),
+           "losses": [m["loss"] for m in m1],
+           "metrics_equal": m1 == m2,
+           "first_unequal_step": next((i + 1 for i, (a, b) in enumerate(
+               zip(m1, m2)) if a != b), None),
+           "loss_rel_gap": [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                            for a, b in zip(m1, m2)],
+           "params": len(p1), "unequal_params": unequal[:10]}
+    emit({"phase": "rerun", **out})
+    require(m1 == m2 and not unequal,
+            f"{what}: two runs from the same init and seeds differ: {out}")
+    return out
+
+
 def train_kernel_checks(port, records, path, tag="train"):
     """K1 at the training shape, K3 at the train batch and the K2
     backward, each against its twin on the inputs one recorded train step
@@ -1420,7 +1521,12 @@ def train_kernel_checks(port, records, path, tag="train"):
     bwd_err, bwd_results = port.check_roi_bwd(records["roi_align_bwd"])
     times = []
     for (wy, wx, g, h, w, dt), _ in records["roi_align_bwd"]:
+        parts = port.device_kernel_ms(   # its two launches apart
+            lambda: port.rk.roi_align_contract_bwd(wy, wx, g, h, w, dt),
+            ("roi_align_bwd_lists", "roi_align_contract_bwd"))
         times.append({
+            "lists_ms": parts["roi_align_bwd_lists"],
+            "gather_ms": parts["roi_align_contract_bwd"],
             "g": list(g.shape), "feat_hw": [h, w], "dtype": str(dt),
             "ms": time_ms(torch, lambda: port.rk.roi_align_contract_bwd(
                 wy, wx, g, h, w, dt), 20),
@@ -1428,13 +1534,17 @@ def train_kernel_checks(port, records, path, tag="train"):
                                 roi_align_contract_bwd_plain(wy, wx, g, dt),
                                 5),
             **roi_bound(wy, wx, port.rk.roi_align_contract_bwd(
-                wy, wx, g, h, w, dt), g)})
+                wy, wx, g, h, w, dt), g),
+            **einsum_library(torch, K2_BWD_EINSUM, wy, wx, g, port.rk.
+                             roi_align_contract_bwd_plain(wy, wx, g),
+                             f"K2 backward {list(g.shape)}")})
     summary["roi_align_bwd"] = {
         "max_abs_err": bwd_err,
         **{key: sum(t[key] for t in times)
-           for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes")},
+           for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes",
+                       "library_ms", "library_graph_ms")},
         "bound_by": max(times, key=lambda t: t["bound_ms"])["bound_by"],
-        "library_ms": None, "library_reason": NO_LIBRARY}
+        "library_call": times[0]["library_call"]}
     emit({"phase": "kernel", "path": path, "kernel": "roi_align_bwd",
           "cases": bwd_results, "times": times, **summary["roi_align_bwd"]})
     return summary
@@ -1458,6 +1568,9 @@ def vgg16_train_path(port, device, frames):
         records = rec or records
         del model
     summary = train_kernel_checks(port, records, "vgg16_train")
+    _, cfg8 = port.train_cfgs("vgg16", 8)
+    runs_twice(port, cfg8, lambda: port.train_model(cfg8, device),
+               port.train_batches(frames, 8, device), "vgg16_train_bs8")
     cfg32, _ = port.train_cfgs("vgg16", 1)
     port.grad_check(cfg32, state_dict, port.train_batches(frames, 1, device)[0],
                     "vgg16_train", ("RCNN_base.10.",))
@@ -1550,7 +1663,10 @@ def scda_kernel_checks(port, records, cfg, tag):
                 wy, wx, feat), 20),
             "plain_ms": time_ms(torch, lambda: port.rk.
                                 roi_align_contract_plain(wy, wx, feat), 20),
-            **roi_bound(wy, wx, feat, port.rk.roi_align_contract(wy, wx, feat))}
+            **roi_bound(wy, wx, feat, port.rk.roi_align_contract(wy, wx, feat)),
+            **einsum_library(torch, K2_EINSUM, wy, wx, feat,
+                             port.rk.roi_align_contract_plain(wy, wx, feat),
+                             f"K2 {tag} {list(wy.shape)}")}
             for (wy, wx, feat), _ in fwd]
         (wy, wx, feat), _ = fwd[0]
         alone = port.device_kernel_ms(
@@ -1559,7 +1675,8 @@ def scda_kernel_checks(port, records, cfg, tag):
     summary["roi_align"] = {
         "max_abs_err": roi_err,
         **{f"{tag}_{key}": fwd_times[0][key]
-           for key in ("wy", "feat", "ms", "plain_ms", "bound_ms", "bound_by")},
+           for key in ("wy", "feat", "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "library_graph_ms")},
         f"{tag}_kernel_alone_ms": alone}
     emit({"phase": "kernel", "path": tag, "kernel": "roi_align",
           "mined": mined_stats, "cases": roi_results, "times": fwd_times,
@@ -1584,16 +1701,23 @@ def scda_kernel_checks(port, records, cfg, tag):
             "plain_ms": time_ms(torch, lambda: port.rk.
                                 roi_align_contract_bwd_plain(wy, wx, g, dt), 5),
             **roi_bound(wy, wx, port.rk.roi_align_contract_bwd(
-                wy, wx, g, h, w, dt), g)})
+                wy, wx, g, h, w, dt), g),
+            **einsum_library(torch, K2_BWD_EINSUM, wy, wx, g, port.rk.
+                             roi_align_contract_bwd_plain(wy, wx, g),
+                             f"K2 backward {tag} {list(g.shape)}")})
     (wy, wx, g, h, w, dt), _ = bwd[0]
-    alone = port.device_kernel_ms(
+    # Its two launches: the lists of each roi's bins, then the gather.
+    parts = port.device_kernel_ms(
         lambda: port.rk.roi_align_contract_bwd(wy, wx, g, h, w, dt),
-        ("roi_align_contract_bwd",))["roi_align_contract_bwd"]
+        ("roi_align_bwd_lists", "roi_align_contract_bwd"))
     summary["roi_align_bwd"] = {
         "max_abs_err": bwd_err,
         **{f"{tag}_{key}": bwd_times[0][key]
-           for key in ("g", "ms", "plain_ms", "bound_ms", "bound_by")},
-        f"{tag}_kernel_alone_ms": alone}
+           for key in ("g", "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "library_graph_ms")},
+        f"{tag}_kernel_alone_ms": None if None in parts.values()
+        else sum(parts.values()),
+        f"{tag}_lists_ms": parts["roi_align_bwd_lists"]}
     emit({"phase": "kernel", "path": tag, "kernel": "roi_align_bwd",
           "zero_cotangent": zero,      # per mined-region call, as run
           "cases": bwd_results, "times": bwd_times,
@@ -2015,11 +2139,13 @@ def serving_checks(port, recs, path, prefix="", adversarial=False,
                       *a), 20),
                   "plain_ms": time_ms(torch, lambda: port.rk.
                                       roi_align_contract_plain(*a), 5),
-                  **roi_bound(*a, out)}
+                  **roi_bound(*a, out),
+                  **einsum_library(torch, K2_EINSUM, *a,
+                                   port.rk.roi_align_contract_plain(*a),
+                                   f"K2 {list(a[2].shape)}")}
                  for (a, _), out in zip(calls, recs["roi_align"].results)]
     summary["roi_align"] = {"max_abs_err": roi_err, **keyed({
-        **roi_times[0], "library_ms": None, "library_reason": NO_LIBRARY,
-        "levels": roi_times})}
+        **roi_times[0], "levels": roi_times})}
     emit({"phase": "kernel", "path": path, "kernel": "roi_align",
           "cases": roi_results, **summary["roi_align"]})
 
@@ -2281,12 +2407,14 @@ def learning_oracle(port, device, tmp):
         reference: its convs round otherwise than cuDNN's, which flips
         ReLU gates in the lowest layers (0.1% of their update, measured)
         that noise on the twins' outputs does not reach.
-    Runs of 20 steps are not compared as a whole: rounding differences
-    grow along the trajectory, so that the card parts from its own
-    rerun (``card_rerun``, the same proposals) by more than such a bound
-    within 20 steps.  A CPU run that draws its own proposals shows where
-    the card's and the CPU's proposals first part
-    (:func:`proposal_split`)."""
+    Runs of 20 steps are not compared with the CPU as a whole: the
+    devices round otherwise, and the differences grow along the
+    trajectory.  A CPU run that draws its own proposals shows where the
+    card's and the CPU's proposals first part (:func:`proposal_split`).
+    The card against itself is exact: its first 20 steps run again, with
+    the first run's proposals (``card_rerun``) and with its own
+    (``card_free_rerun``), must give the same losses at every step and
+    the same parameters after step 20."""
     from scda_tpu_torch.evals.detect import evaluate_model
 
     torch, o = port.torch, ORACLE
@@ -2323,14 +2451,30 @@ def learning_oracle(port, device, tmp):
         return Recorder(port.detector, "propose", lambda *a, **k: type(
             props.results[0])(*(t.to(dev) for t in next(steps))))
 
-    # The card against itself: its first n steps again, same proposals.
-    _, rerun, _, _ = run(device, n, [replayed(card_props, 0, device)])
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    # The card against itself: its first n steps again, with the same
+    # proposals and drawing its own; both must repeat the first run's
+    # bits (losses at every step, parameters after step n).
+    at_n = snaps[n]["model"]
+
+    def repeats(model, rerun_losses):
+        unequal = [k for k, p in model.named_parameters() if p.requires_grad
+                   and not torch.equal(p.detach().cpu(), at_n[k])]
+        return {"rel_gap": [rel(a, b) for a, b in zip(rerun_losses,
+                                                      losses[:n])],
+                "losses_equal": rerun_losses == losses[:n],
+                "params_equal": not unequal, "unequal_params": unequal[:10]}
+
+    m, rerun, _, _ = run(device, n, [replayed(card_props, 0, device)])
+    card_rerun = repeats(m, rerun)
+    m, rerun, _, _ = run(device, n)
+    card_free_rerun = repeats(m, rerun)
+    del m
     # The CPU's own proposals, for where they first part from the card's.
     _, free_cpu, free_props, _ = run("cpu", n)
     split = proposal_split(port, card_props, free_props, n)
-
-    def rel(a, b):
-        return abs(a - b) / abs(b)
 
     def rel_norm(a, b):
         ref = float(b.norm())
@@ -2403,8 +2547,7 @@ def learning_oracle(port, device, tmp):
                          f"update vs the card's twin step max(1e-3, "
                          f"{PERTURB_FACTOR} x the gap the same noise "
                          f"opens there)",
-           "card_rerun": {"rel_gap": [rel(a, b) for a, b in
-                                      zip(rerun, losses[:n])]},
+           "card_rerun": card_rerun, "card_free_rerun": card_free_rerun,
            "free_cpu_run": {"rel_gap_card": [
                rel(a, b) for a, b in zip(losses[:n], free_cpu)],
                "first_split": split}}
@@ -2415,6 +2558,10 @@ def learning_oracle(port, device, tmp):
             f"{o['steps']} steps on the card")
     require(not over, f"oracle: card steps off the CPU's past the bound "
                       f"at steps {over}")
+    for name, r in (("card_rerun", card_rerun),
+                    ("card_free_rerun", card_free_rerun)):
+        require(r["losses_equal"] and r["params_equal"],
+                f"oracle: {name} is not bit-equal to the first run: {r}")
     for k in ("nms", "roi_align", "roi_align_bwd"):
         require(launches[k] > 0, f"oracle: {k} never launched")
     return out, launches
@@ -2544,15 +2691,16 @@ def quiet_cli(torch, main, argv, what):
     return buf.getvalue(), seconds
 
 
-def ab_train(port, argv, save, steps, what):
-    """One ``trainval`` run of the A/B: its seconds, img/s (the CLI's
-    own average after the first step), every step's logged metrics, and
-    the loss means of the first and last ``AB_LOSS_WINDOW`` steps."""
+def ab_train(port, proto, argv, save, steps, what):
+    """One ``trainval`` run of a protocol of ``PROTOCOLS``: its seconds,
+    img/s (the CLI's own average after the first step), every step's
+    logged metrics, and the loss means of the first and last
+    ``AB_LOSS_WINDOW`` steps."""
     import re
 
     text, seconds = quiet_cli(port.torch, port.trainval.main,
-                              ["--net", AB_NET, *AB_COMMON, *argv,
-                               "--save_dir", save], what)
+                              ["--net", AB_NET, *AB_COMMON, *proto["train"],
+                               *argv, "--save_dir", save], what)
     with open(os.path.join(save, AB_NET, "synthetic", "metrics.jsonl")) as f:
         rows = [json.loads(line)["train"] for line in f]
     require([r["step"] for r in rows] == list(range(1, steps + 1)),
@@ -2568,12 +2716,13 @@ def ab_train(port, argv, save, steps, what):
             "loss_last50": sum(loss[-w:]) / w}, rows
 
 
-def ab_eval(port, load_dir, fog, what):
+def ab_eval(port, proto, load_dir, fog, what):
     """``test_net`` on ``AB_VAL_IMAGES`` held-out scenes at ``fog``: mAP,
     per-class AP, img/s and seconds."""
     text, seconds = quiet_cli(port.torch, port.test_net.main, [
         "--dataset", "synthetic", "--net", AB_NET, "--load_dir", load_dir,
-        "--synth_images", str(AB_VAL_IMAGES), "--synth_fog", fog], what)
+        "--synth_images", str(AB_VAL_IMAGES), "--synth_fog", fog,
+        *proto["eval"]], what)
     ev = next(json.loads(line)["eval"] for line in text.splitlines()
               if line.startswith('{"eval"'))
     return {"mAP": ev.pop("mAP"), "img_per_s": ev.pop("images_per_sec"),
@@ -2585,54 +2734,108 @@ def spread(values):
             "range": [min(values), max(values)]}
 
 
-def learning_ab(port, root):
-    """``scripts/scda_ab_demo.sh`` through ``cli.trainval.main`` and
+def unequal_keys(torch, a, b):
+    """The keys of two checkpoints' dicts whose tensors (or values) are
+    not bit-equal."""
+    out = []
+    for k in sorted(set(a) | set(b)):
+        x, y = a.get(k), b.get(k)
+        if isinstance(x, dict) and isinstance(y, dict):
+            out += [f"{k}.{n}" for n in unequal_keys(torch, x, y)]
+        elif torch.is_tensor(x) and torch.is_tensor(y):
+            if x.shape != y.shape or not torch.equal(x, y):
+                out.append(k)
+        elif x != y:
+            out.append(k)
+    return out
+
+
+def ab_protocol(port, root, name):
+    """A protocol of ``PROTOCOLS`` through ``cli.trainval.main`` and
     ``cli.test_net.main``: the 400-step source stage (seed 3), then per
     seed of ``AB_SEEDS`` the +150-step control and SCDA (fog-0.3 target)
     arms from its checkpoint, each evaluated clean and at fog 0.3 on
-    ``AB_VAL_IMAGES`` held-out scenes.  Checkpoints live under ``root``
-    and go once evaluated.  Gates: every logged value finite (in
-    :func:`ab_train`), the source loss halving from its first 50 steps
-    to its last 50, and every clean mAP >= ``AB_MAP_MIN``."""
+    ``AB_VAL_IMAGES`` held-out scenes.  The SCDA arm of ``rerun_seed``
+    runs a second time: its logged metrics at every step, its checkpoint
+    (detector, discriminator, momenta) and its mAPs must equal the
+    first's.  Checkpoints live under ``root`` and go once evaluated.
+    Returns (the results, the gates, the launches): every logged value
+    finite (in :func:`ab_train`), the source loss halving from its first
+    50 steps to its last 50, every clean mAP >= ``AB_MAP_MIN``, and the
+    rerun equal."""
     import shutil
 
+    from scda_tpu_torch.train.checkpoint import load_payload
+
+    proto = PROTOCOLS[name]
+    head = ["--set", *proto["set"]] if proto["set"] else []
+    scda_head = ["--set", *proto["set"], *proto["scda_set"]] if (
+        proto["set"] or proto["scda_set"]) else []
     for w in port.wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    src = os.path.join(root, "src")
-    source, _ = ab_train(port, AB_SOURCE, src, AB_SOURCE_STEPS, "A/B source")
+    src = os.path.join(root, f"{name}_src")
+    source, _ = ab_train(port, proto, [*AB_SOURCE, *head], src,
+                         AB_SOURCE_STEPS, f"{name} source")
     for fog in AB_FOGS:
-        source[f"fog{fog}"] = ab_eval(port, src, fog, f"A/B source fog {fog}")
-    emit({"phase": "learning_ab", "stage": "source", **source})
-    arms = {"control": {}, "scda": {}}
+        source[f"fog{fog}"] = ab_eval(port, proto, src, fog,
+                                      f"{name} source fog {fog}")
+    emit({"phase": name, "stage": "source", **source})
+    arms, rerun = {"control": {}, "scda": {}}, None
     for seed in AB_SEEDS:
-        for arm, extra in (("control", []), ("scda", AB_SCDA)):
-            save = os.path.join(root, f"{arm}{seed}")
-            what = f"A/B {arm} seed {seed}"
-            res, rows = ab_train(port, [
-                *AB_ARM, *extra, "--seed", str(seed), "--init_from",
-                os.path.join(src, AB_NET, "synthetic")], save, AB_ARM_STEPS,
-                what)
+        for arm, extra in (("control", head), ("scda", [*AB_SCDA,
+                                                        *scda_head])):
+            argv = [*AB_ARM, *extra, "--seed", str(seed), "--init_from",
+                    os.path.join(src, AB_NET, "synthetic")]
+            save = os.path.join(root, f"{name}_{arm}{seed}")
+            what = f"{name} {arm} seed {seed}"
+            res, rows = ab_train(port, proto, argv, save, AB_ARM_STEPS, what)
             if arm == "scda":   # 10-step means at the start, middle, end
                 acc = [r["d_acc"] for r in rows]
                 res["d_acc_start_mid_end"] = [
                     sum(acc[a:a + 10]) / 10
                     for a in (0, AB_ARM_STEPS // 2 - 5, AB_ARM_STEPS - 10)]
             for fog in AB_FOGS:
-                res[f"fog{fog}"] = ab_eval(port, save, fog,
+                res[f"fog{fog}"] = ab_eval(port, proto, save, fog,
                                            f"{what} fog {fog}")
+            if arm == "scda" and seed == proto["rerun_seed"]:
+                again = save + "_again"
+                res2, rows2 = ab_train(port, proto, argv, again,
+                                       AB_ARM_STEPS, f"{what}, again")
+                maps = {fog: ab_eval(port, proto, again, fog,
+                                     f"{what}, again, fog {fog}")["mAP"]
+                        for fog in AB_FOGS}
+                unequal = unequal_keys(
+                    port.torch, load_payload(os.path.join(save, AB_NET, "synthetic")),
+                    load_payload(os.path.join(again, AB_NET, "synthetic")))
+                # A row's values, without its clock readings.
+                vals = [[{k: v for k, v in r.items()
+                          if k not in ("wall_s", "img_per_sec")} for r in rs]
+                        for rs in (rows, rows2)]
+                rerun = {"seed": seed, "steps": AB_ARM_STEPS,
+                         "rows_equal": vals[0] == vals[1],
+                         "first_unequal_step": next(
+                             (a["step"] for a, b in zip(*vals) if a != b),
+                             None),
+                         "checkpoint_unequal": unequal[:10],
+                         "mAP": {fog: [res[f"fog{fog}"]["mAP"], maps[fog]]
+                                 for fog in AB_FOGS},
+                         "seconds": res2["seconds"]}
+                emit({"phase": name, "stage": "scda_rerun", **rerun})
+                shutil.rmtree(again)
             shutil.rmtree(save)
             arms[arm][str(seed)] = res
-            emit({"phase": "learning_ab", "stage": arm, "seed": seed, **res})
+            emit({"phase": name, "stage": arm, "seed": seed, **res})
     shutil.rmtree(src)
     launches = launch_counts(port)
     summary = {arm: {key: spread([r[key] if key in ("img_per_s", "seconds")
                                   else r[key]["mAP"] for r in runs.values()])
                      for key in ("fog0.0", "fog0.3", "img_per_s", "seconds")}
                for arm, runs in arms.items()}
-    out = {"protocol": "scripts/scda_ab_demo.sh", "val_images": AB_VAL_IMAGES,
+    out = {"protocol": proto["script"], "val_images": AB_VAL_IMAGES,
            "seeds": list(AB_SEEDS), "source": source, "arms": arms,
-           "over_seeds": summary, "jax_results_md": AB_JAX,
+           "over_seeds": summary, "jax_results_md": proto["jax"],
+           "scda_rerun": rerun,
            "seconds": time.perf_counter() - t0, "launches": launches}
     gates = {
         "source_loss_halves": source["loss_last50"]
@@ -2641,6 +2844,10 @@ def learning_ab(port, root):
         "arms_clean_map": all(r["fog0.0"]["mAP"] >= AB_MAP_MIN
                               for runs in arms.values()
                               for r in runs.values())}
+    if rerun is not None:
+        gates["scda_rerun_equal"] = (
+            rerun["rows_equal"] and not rerun["checkpoint_unequal"]
+            and all(a == b for a, b in rerun["mAP"].values()))
     return out, gates, launches
 
 
@@ -2721,6 +2928,8 @@ def learning_res101_scda(port, device, frames):
                     **chain_bwd_bound(args[0], args[1])})
         del y
     del records
+    rerun = runs_twice(port, cfg, lambda: port.train_model(
+        cfg, device, state_dict), src, "res101_ms_scda_joint_bs1", tgt)
     port.grad_check(cfg32, state_dict, src[0], "res101_ms_scda_joint",
                     ("RCNN_base.5.", "RCNN_base.6."), tgt=tgt[0])
 
@@ -2735,7 +2944,8 @@ def learning_res101_scda(port, device, frames):
                                  for k, v in launches.items()},
            "k4_calls_per_step": len(graded[-1]),
            "k4_calls_under_autograd_per_step": sum(graded[-1]),
-           "peak_mem_bytes": peak, "k4_backward_remat": bwd}
+           "peak_mem_bytes": peak, "k4_backward_remat": bwd,
+           "rerun": rerun}
     emit({"phase": "learning_res101_scda", **out})
     flat = [v for h in history for v in h.values()]
     require(all(map(math.isfinite, flat)), "res101-ms SCDA: non-finite loss")
@@ -2756,7 +2966,7 @@ def learning_path(port, device, frames):
     try:
         oracle, l_oracle = learning_oracle(port, device,
                                            os.path.join(root, "oracle"))
-        ab, gates, l_ab = learning_ab(port, root)
+        ab, gates, l_ab = ab_protocol(port, root, "learning_ab")
         res, l_res, summary = learning_res101_scda(port, device, frames)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2768,6 +2978,28 @@ def learning_path(port, device, frames):
         require(ok, f"learning: gate {name} failed")
     return summary, {"learning_oracle": l_oracle, "learning_ab": l_ab,
                 "learning_res101_scda": l_res}
+
+
+def car_path(port, device, frames):
+    """``scripts/scda_car_ab.sh`` through the CLIs (:func:`ab_protocol`):
+    VGG16 on the car-only fixture, a class-agnostic box head, the SCDA
+    arms alternating D/G updates; its SCDA arm at seed 3 twice.  Prints
+    one ``car`` line with every result, then fails on the first gate that
+    did not hold."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="scda_car_")   # outside the checkout
+    try:
+        car, gates, launches = ab_protocol(port, root, "car")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"car": {**car, "gates": gates,
+                  "seconds": time.perf_counter() - t0}})
+    for name, ok in gates.items():
+        require(ok, f"car: gate {name} failed")
+    return {}, {"car": launches}
 
 
 def main() -> int:
@@ -2793,6 +3025,12 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    # Full f32 and deterministic algorithms, as every entry point of the
+    # port runs (``utils/numerics.py``), before any CUDA tensor exists.
+    from scda_tpu_torch.utils.numerics import set_card_numerics
+
+    set_card_numerics()
+
     # ---- phase 2: build ----------------------------------------------
     from scda_tpu_torch.ops.kernels import _build
 
@@ -2802,8 +3040,6 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(lib_path, here)})
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     port = Port(torch)
     frames = make_frames(port.serving_cfgs("vgg16")[0], N_FRAMES, seed=1)
 
@@ -2815,7 +3051,7 @@ def main() -> int:
              ("vgg16_scda", vgg16_scda_path),
              ("vgg16_surface", vgg16_surface_path),
              ("bench_batches", bench_batches_path),
-             ("learning", learning_path))
+             ("learning", learning_path), ("car", car_path))
     only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
     require(only is None or set(only) <= {n for n, _ in paths},
             f"--only takes a comma-separated subset of {[n for n, _ in paths]}")

@@ -83,6 +83,9 @@ def detect(step, img_bgr: np.ndarray, cfg, device):
 
 
 def main(argv=None) -> int:
+    from scda_tpu_torch.utils.numerics import set_card_numerics
+
+    set_card_numerics()
     args = parse_args(argv)
 
     import torch

@@ -92,6 +92,9 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> int:
+    from scda_tpu_torch.utils.numerics import set_card_numerics
+
+    set_card_numerics()
     args = parse_args(argv)
 
     import torch

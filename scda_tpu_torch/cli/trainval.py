@@ -191,6 +191,9 @@ def get_dataset(args, cfg, name):
 
 
 def main(argv=None) -> int:
+    from scda_tpu_torch.utils.numerics import set_card_numerics
+
+    set_card_numerics()
     args = parse_args(argv)
     cfg = build_config(args)
     tgt_name = target_name(args)

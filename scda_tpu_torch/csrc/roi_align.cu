@@ -31,22 +31,34 @@
 // The backward (JAX computes it as two einsums in _contract_bwd, no
 // Pallas call) is the transpose of the same sparse map:
 //
-//   dfeat[b,h,w,c] = sum_{r,p,q} wy[b,r,p,h] * wx[b,r,q,w] * g[b,r,p,q,c]
+//   dfeat[b,h,w,c] = sum_r sum_{p at h} wy[b,r,p,h]
+//                          * sum_{q at w} wx[b,r,q,w] * g[b,r,p,q,c]
 //
 // The einsum form materialises a (B, R, P, W, C) f32 intermediate (117 MB
-// per VGG16 training image).  Here rois add into an f32 dfeat with
-// atomics, and what bounds a scatter of wy*wx*g per tap pair is the bytes
-// those atomics move through L2 (16 pairs per bin and channel; scalar and
-// float4 atomics both ran at about 5.9 TB/s of them).  So the kernel
-// sends fewer: a block per (b, r) and 64-channel slice stages its slice
-// of g in shared memory, lists the pixels the roi touches with the bins
-// that reach each, sums a pixel's contributions in registers and adds
-// them to dfeat once, four channels per vector reduction (atomicAdd on
-// float4, red.global.add.v4.f32 on compute capability 9.0).  The bins of
-// a roi overlap on the map (two samples a bin, two taps a sample), so a
-// pixel gets one reduction per roi instead of one per tap pair.  Rois of
-// one image overlap too, so the order of the adds (and the f32 rounding)
-// changes from run to run.
+// per VGG16 training image).  A scatter of each roi's share into dfeat
+// needs atomics, and rois of one image overlap on the map, so the order
+// of the f32 adds, and the rounding of dfeat, would change from run to
+// run.  Here every dfeat element is computed by one thread, in an order
+// fixed by the code, and stored once, in the caller's dtype: two
+// launches on the same inputs give the same bits.  It is a gather:
+//   * a prep kernel (a warp per roi) lists, for every map row h, the bins
+//     p whose weight row reaches it (in p order, with the weight and the
+//     offset of g[b,r,p,:,:]), the same for every map column w and bin q,
+//     and the rectangle of rows and columns the roi touches.  A list
+//     holds at most P entries whatever the sampling mode;
+//   * the main kernel gives a block one image, a tile of kTileH x kTileW
+//     pixels and 32 * V channels (V = 4 f32 where the channels allow), a
+//     warp one pixel at a time and a lane V channels.  The block lists,
+//     in r order, the rois whose rectangle meets its tile (ballots, no
+//     atomics); each warp then walks them, and for each the bins of its
+//     pixel's row and column, r ascending, then p, then q, summing
+//     wx * g over q and wy times that over p in f32 registers;
+//   * each pixel's channels are written once, every pixel of the map
+//     included (zero where no roi reaches), so the output needs no
+//     memset and no cast afterwards.
+// What bounds it: the g rows it gathers come from L2 and L1 (a bin's g
+// row is read for each of the up to 4 x 4 pixels its taps reach), not
+// the bytes it must move (g once, dfeat once).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -287,167 +299,206 @@ roi_align_contract_kernel(const float* __restrict__ wy,
 
 // ---- backward ------------------------------------------------------------------
 
+constexpr int kPrepWarps = 4;            // rois a prep block lists
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileH = 2, kTileW = 8;    // map pixels a backward block owns
+constexpr int kPixPerWarp = kTileH * kTileW / kWarps;
+static_assert(kTileH * kTileW == kPixPerWarp * kWarps, "tile per warp");
+
+// The transposed weights of every roi br = b * R + r (scratch the caller
+// allocates, laid out by bwd_layout):
+//   range[br]                int4: first and last map row, first and last
+//                            map column the roi reaches (first > last: none)
+//   hn[br * H + h]           how many bins p have wy[b,r,p,h] != 0
+//   he[(br * H + h) * P + k] int2 (p * P * C, bits of wy[b,r,p,h]), k < hn,
+//                            in p order
+//   wn, we                   the same for the columns: (q * C, wx[b,r,q,w])
+struct BwdLists {
+  int4* range;
+  int2* he;
+  int2* we;
+  int* hn;
+  int* wn;
+};
+
+size_t align_up(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
+
+// Byte offsets of the five arrays in the scratch; returns its size.
+size_t bwd_layout(long long rois, int P, int H, int W, size_t off[5]) {
+  const size_t n = static_cast<size_t>(rois);
+  const size_t sizes[5] = {n * sizeof(int4), n * H * P * sizeof(int2),
+                           n * W * P * sizeof(int2), n * H * sizeof(int),
+                           n * W * sizeof(int)};
+  size_t total = 0;
+  for (int i = 0; i < 5; ++i) {
+    off[i] = total;
+    total += align_up(sizes[i]);
+  }
+  return total;
+}
+
+BwdLists bwd_lists(void* scratch, long long rois, int P, int H, int W) {
+  size_t off[5];
+  bwd_layout(rois, P, H, W, off);
+  char* base = static_cast<char*>(scratch);
+  return {reinterpret_cast<int4*>(base + off[0]),
+          reinterpret_cast<int2*>(base + off[1]),
+          reinterpret_cast<int2*>(base + off[2]),
+          reinterpret_cast<int*>(base + off[3]),
+          reinterpret_cast<int*>(base + off[4])};
+}
+
+// One warp lists, for every column i of a (P, len) weight matrix, the
+// rows p with src[p, i] != 0, in p order, as (p * stride, weight).
+// Returns the first and last column with an entry (len and -1 if none).
+__device__ __forceinline__ int2 list_entries(const float* __restrict__ src,
+                                             int P, int len, int stride,
+                                             int2* ent, int* cnt, int lane) {
+  int first = len, last = -1;
+  for (int i = lane; i < len; i += 32) {
+    int n = 0;
+    for (int p = 0; p < P; ++p) {
+      const float v = src[p * len + i];
+      if (v != 0.0f) {
+        ent[i * P + n] = make_int2(p * stride, __float_as_int(v));
+        ++n;
+      }
+    }
+    cnt[i] = n;
+    if (n > 0) {
+      first = min(first, i);
+      last = max(last, i);
+    }
+  }
+  return make_int2(__reduce_min_sync(0xffffffffu, first),
+                   __reduce_max_sync(0xffffffffu, last));
+}
+
+// Grid ceil(B * R / kPrepWarps); a warp per roi.
+__global__ void __launch_bounds__(kPrepWarps * 32)
+roi_align_bwd_lists_kernel(const float* __restrict__ wy,
+                           const float* __restrict__ wx, BwdLists l,
+                           long long rois, int P, int H, int W, int C) {
+  const long long br =
+      static_cast<long long>(blockIdx.x) * kPrepWarps + (threadIdx.x >> 5);
+  if (br >= rois) return;   // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int2 rows = list_entries(wy + br * P * H, P, H, P * C,
+                                 l.he + br * H * P, l.hn + br * H, lane);
+  const int2 cols = list_entries(wx + br * P * W, P, W, C,
+                                 l.we + br * W * P, l.wn + br * W, lane);
+  if (lane == 0) l.range[br] = make_int4(rows.x, rows.y, cols.x, cols.y);
+}
+
 template <int V>
-__device__ __forceinline__ void add_f32(float* p, const float* v) {
+__device__ __forceinline__ void store_out(float* p, const float* v) {
+  store_f32<V>(p, v);
+}
+
+template <int V>
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, const float* v) {
   if constexpr (V == 1) {
-    atomicAdd(p, v[0]);
+    *p = __float2bfloat16_rn(v[0]);
   } else {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(v[0], v[1], v[2], v[3]));
+    static_assert(V == 4, "4 channels a lane");
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;   // 8 bytes: C % 4 == 0
   }
 }
 
-constexpr int kBwdChannels = 64;   // channels of g a block stages
+// Grid (tiles of the map, B, channel slices of 32 * V).  Writes every
+// dfeat element of its tile and slice once.
+template <int V, typename Out>
+__global__ void __launch_bounds__(kThreads)
+roi_align_contract_bwd_kernel(const float* __restrict__ g, BwdLists l,
+                              Out* __restrict__ dfeat, int R, int P, int H,
+                              int W, int C, int tiles_w) {
+  __shared__ int cand[kThreads];
+  __shared__ int warp_hits[kWarps];
+  const int b = blockIdx.y;
+  const int th = blockIdx.x / tiles_w, tw = blockIdx.x - th * tiles_w;
+  const int h0 = th * kTileH, w0 = tw * kTileW;
+  const int h1 = min(h0 + kTileH, H) - 1, w1 = min(w0 + kTileW, W) - 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = (blockIdx.z * 32 + lane) * V;   // the lane's first channel
+  const bool live = c < C;
 
-// The transpose of a (P, len) weight matrix as lists: for every column
-// with a nonzero, in order, its offset index * stride and its (p, weight)
-// entries.  Called by one whole warp; returns the number of columns.
-struct ColumnLists {
-  int* off;      // len: offset of the column's pixels in the map
-  int* first;    // len: the column's first entry
-  int* count;    // len: its entries
-  int* ent_p;    // P * len
-  float* ent_w;  // P * len
-};
-
-__device__ __forceinline__ int list_columns(const float* __restrict__ src,
-                                            int P, int len, int stride,
-                                            const ColumnLists& l, int lane) {
-  int columns = 0, entries = 0;
-  for (int base = 0; base < len; base += 32) {
-    const int i = base + lane;
-    int cnt = 0;
-    if (i < len) {
-      for (int p = 0; p < P; ++p) cnt += src[p * len + i] != 0.0f;
-    }
-    int upto = cnt;                      // inclusive scan over the lanes
+  float acc[kPixPerWarp][V];
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int x = __shfl_up_sync(0xffffffffu, upto, d);
-      if (lane >= d) upto += x;
+  for (int k = 0; k < kPixPerWarp; ++k) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[k][i] = 0.0f;
+  }
+  const size_t rbase = static_cast<size_t>(b) * R;
+  for (int base = 0; base < R; base += kThreads) {
+    // The rois of this chunk that reach the tile, in r order.
+    const int r = base + threadIdx.x;
+    bool hit = false;
+    if (r < R) {
+      const int4 s = l.range[rbase + r];
+      hit = s.x <= h1 && s.y >= h0 && s.z <= w1 && s.w >= w0;
     }
-    const unsigned nz = __ballot_sync(0xffffffffu, cnt > 0);
-    if (cnt > 0) {
-      const int pos = columns + __popc(nz & ((1u << lane) - 1u));
-      int e = entries + upto - cnt;
-      l.off[pos] = i * stride;
-      l.first[pos] = e;
-      l.count[pos] = cnt;
-      for (int p = 0; p < P; ++p) {
-        const float v = src[p * len + i];
-        if (v != 0.0f) {
-          l.ent_p[e] = p;
-          l.ent_w[e] = v;
-          ++e;
+    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_hits[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      before += i < warp ? warp_hits[i] : 0;
+      total += warp_hits[i];
+    }
+    if (hit) cand[before + __popc(m & ((1u << lane) - 1u))] = r;
+    __syncthreads();
+
+#pragma unroll
+    for (int k = 0; k < kPixPerWarp; ++k) {
+      const int pix = warp + k * kWarps;
+      const int h = h0 + pix / kTileW, w = w0 + pix % kTileW;
+      if (h > h1 || w > w1 || !live) continue;
+      for (int i = 0; i < total; ++i) {
+        const size_t br = rbase + cand[i];
+        const int nh = l.hn[br * H + h];
+        const int nw = l.wn[br * W + w];
+        if (nh == 0 || nw == 0) continue;
+        const int2* he = l.he + (br * H + h) * P;
+        const int2* we = l.we + (br * W + w) * P;
+        const float* gr = g + br * P * P * C + c;
+        for (int a = 0; a < nh; ++a) {
+          const int2 x = he[a];
+          float t[V];
+#pragma unroll
+          for (int j = 0; j < V; ++j) t[j] = 0.0f;
+          for (int e = 0; e < nw; ++e) {
+            const int2 y = we[e];
+            Vec<float, V> gv;
+            gv.load(gr + x.x + y.x);
+            float gk[V];
+            gv.unpack(gk);
+            const float bq = __int_as_float(y.y);
+#pragma unroll
+            for (int j = 0; j < V; ++j) t[j] = fmaf(bq, gk[j], t[j]);
+          }
+          const float aw = __int_as_float(x.y);
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[k][j] = fmaf(aw, t[j], acc[k][j]);
         }
       }
     }
-    entries += __shfl_sync(0xffffffffu, upto, 31);
-    columns += __popc(nz);
+    __syncthreads();   // the next chunk rewrites cand
   }
-  return columns;
-}
 
-// dfeat must be zero on entry; every block adds its roi's share of one
-// channel slice.  Grid (B * R, channel slices of `cvecs` vectors).
-//
-// The transpose is taken as a gather.  The block stages its slice of
-// g[b,r] in shared memory and lists the map rows and columns the roi
-// touches, each with the bins (p or q, weight) that reach it.  A thread
-// then owns V channels of one touched pixel (h, w), sums
-//   sum_{p at h} wy[p,h] * sum_{q at w} wx[q,w] * g[p,q,:]
-// from shared memory, and adds the sum to dfeat once.
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-roi_align_contract_bwd_kernel(const float* __restrict__ wy,
-                              const float* __restrict__ wx,
-                              const float* __restrict__ g,
-                              float* __restrict__ dfeat, int R, int P, int H,
-                              int W, int C, int cvecs) {
-  extern __shared__ int4 smem_raw[];
-  const int stride = cvecs * V;                        // floats a bin
-  float* gs = reinterpret_cast<float*>(smem_raw);      // P * P * stride
-  int* ints = reinterpret_cast<int*>(gs + P * P * stride);
-  ColumnLists hl, wl;
-  hl.off = ints;
-  hl.first = hl.off + H;
-  hl.count = hl.first + H;
-  hl.ent_p = hl.count + H;
-  wl.off = hl.ent_p + P * H;
-  wl.first = wl.off + W;
-  wl.count = wl.first + W;
-  wl.ent_p = wl.count + W;
-  hl.ent_w = reinterpret_cast<float*>(wl.ent_p + P * W);
-  wl.ent_w = hl.ent_w + P * H;
-  int* counts = reinterpret_cast<int*>(wl.ent_w + P * W);   // 2
-
-  const size_t br = blockIdx.x;
-  const int b = static_cast<int>(br / R);
-  const int c0 = blockIdx.y * stride;
-  const int nvec = min(cvecs, (C - c0) / V);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  const float* gb = g + br * P * P * C + c0;
-  for (int item = threadIdx.x; item < P * P * nvec; item += kThreads) {
-    const int bin = item / nvec, vec = item - bin * nvec;
-    Vec<float, V> x;
-    x.load(gb + static_cast<size_t>(bin) * C + vec * V);
-    x.unpack(gs + bin * stride + vec * V);
+#pragma unroll
+  for (int k = 0; k < kPixPerWarp; ++k) {
+    const int pix = warp + k * kWarps;
+    const int h = h0 + pix / kTileW, w = w0 + pix % kTileW;
+    if (h > h1 || w > w1 || !live) continue;
+    store_out<V>(dfeat + ((static_cast<size_t>(b) * H + h) * W + w) * C + c,
+                 acc[k]);
   }
-  if (warp == 0) {
-    const int n = list_columns(wy + br * P * H, P, H, W * C, hl, lane);
-    if (lane == 0) counts[0] = n;
-  } else if (warp == 1) {
-    const int n = list_columns(wx + br * P * W, P, W, C, wl, lane);
-    if (lane == 0) counts[1] = n;
-  }
-  __syncthreads();
-
-  const int nh = counts[0], nw = counts[1];
-  float* db = dfeat + static_cast<size_t>(b) * H * W * C + c0;
-  // nvec lanes run along the channels; the groups of nvec threads walk
-  // the touched pixels row-major, (i, j) kept by carry, not by division.
-  const int ngroups = kThreads / nvec;
-  const int group = threadIdx.x / nvec, vec = threadIdx.x - group * nvec;
-  if (group >= ngroups || nh == 0 || nw == 0) return;
-  const float* gv = gs + vec * V;
-  int i = group / nw, j = group - i * nw;
-  for (int pix = group; pix < nh * nw; pix += ngroups) {
-    const int h0 = hl.first[i], h1 = h0 + hl.count[i];
-    const int w0 = wl.first[j], w1 = w0 + wl.count[j];
-    float acc[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = 0.0f;
-    for (int a = h0; a < h1; ++a) {
-      const float* gp = gv + hl.ent_p[a] * P * stride;
-      float t[V];
-#pragma unroll
-      for (int k = 0; k < V; ++k) t[k] = 0.0f;
-      for (int e = w0; e < w1; ++e) {
-        Vec<float, V> gq;      // one 16-byte read of shared memory
-        gq.load(gp + wl.ent_p[e] * stride);
-        float gk[V];
-        gq.unpack(gk);
-        const float bq = wl.ent_w[e];
-#pragma unroll
-        for (int k = 0; k < V; ++k) t[k] = fmaf(bq, gk[k], t[k]);
-      }
-      const float aw = hl.ent_w[a];
-#pragma unroll
-      for (int k = 0; k < V; ++k) acc[k] = fmaf(aw, t[k], acc[k]);
-    }
-    add_f32<V>(db + hl.off[i] + wl.off[j] + vec * V, acc);
-    j += ngroups;
-    while (j >= nw) {
-      j -= nw;
-      ++i;
-    }
-  }
-}
-
-size_t bwd_smem(int P, int H, int W, int stride) {
-  return (static_cast<size_t>(P) * P * stride + (H + W) * (3 + 2 * P) + 2) *
-         sizeof(float);
 }
 
 // ---- launches ----------------------------------------------------------------
@@ -508,32 +559,43 @@ int launch(const void* wy, const void* wx, const void* feat, void* out, int B,
   return launch_fwd<T, 1>(wy, wx, feat, out, B, R, P, H, W, C, s);
 }
 
-template <int V>
-int launch_bwd_v(const void* wy, const void* wx, const void* g, void* dfeat,
-                 int B, int R, int P, int H, int W, int C, cudaStream_t s) {
-  const int vecs = C / V;
-  const int cvecs = vecs < kBwdChannels / V ? vecs : kBwdChannels / V;
-  const size_t smem = bwd_smem(P, H, W, cvecs * V);
-  cudaError_t e = allow_smem(roi_align_contract_bwd_kernel<V>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long rois = static_cast<long long>(B) * R;
-  roi_align_contract_bwd_kernel<V>
-      <<<dim3(static_cast<unsigned>(rois), (vecs + cvecs - 1) / cvecs),
-         kThreads, smem, s>>>(
-          static_cast<const float*>(wy), static_cast<const float*>(wx),
-          static_cast<const float*>(g), static_cast<float*>(dfeat), R, P, H,
-          W, C, cvecs);
+template <int V, typename Out>
+int launch_bwd_v(const void* g, BwdLists l, void* dfeat, int B, int R, int P,
+                 int H, int W, int C, cudaStream_t s) {
+  const int tiles_w = (W + kTileW - 1) / kTileW;
+  const int tiles = ((H + kTileH - 1) / kTileH) * tiles_w;
+  const int slices = (C / V + 31) / 32;
+  roi_align_contract_bwd_kernel<V, Out>
+      <<<dim3(tiles, B, slices), kThreads, 0, s>>>(
+          static_cast<const float*>(g), l, static_cast<Out*>(dfeat), R, P, H,
+          W, C, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename Out>
 int launch_bwd(const void* wy, const void* wx, const void* g, void* dfeat,
-               int B, int R, int P, int H, int W, int C, void* stream) {
-  if (B <= 0 || R <= 0 || P <= 0 || C <= 0) return cudaSuccess;
-  if (!map_fits(H, W, C)) return static_cast<int>(cudaErrorInvalidValue);
+               void* scratch, int B, int R, int P, int H, int W, int C,
+               void* stream) {
+  if (B <= 0 || C <= 0 || H <= 0 || W <= 0) return cudaSuccess;   // no dfeat
+  if (!map_fits(H, W, C) ||
+      static_cast<long long>(P) * P * C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P <= 0) R = 0;   // no bins: dfeat is all zero, still written
+  const long long rois = static_cast<long long>(B) * (R > 0 ? R : 0);
+  const BwdLists l = bwd_lists(scratch, rois, P, H, W);
+  if (rois > 0) {
+    roi_align_bwd_lists_kernel<<<static_cast<unsigned>(
+                                     (rois + kPrepWarps - 1) / kPrepWarps),
+                                 kPrepWarps * 32, 0, s>>>(
+        static_cast<const float*>(wy), static_cast<const float*>(wx), l,
+        rois, P, H, W, C);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (C % 4 == 0 && aligned16(g) && aligned16(dfeat))
-    return launch_bwd_v<4>(wy, wx, g, dfeat, B, R, P, H, W, C, s);
-  return launch_bwd_v<1>(wy, wx, g, dfeat, B, R, P, H, W, C, s);
+    return launch_bwd_v<4, Out>(g, l, dfeat, B, R, P, H, W, C, s);
+  return launch_bwd_v<1, Out>(g, l, dfeat, B, R, P, H, W, C, s);
 }
 
 }  // namespace
@@ -553,11 +615,25 @@ extern "C" int scda_roi_align_contract_bf16(const void* wy, const void* wx,
   return launch<__nv_bfloat16>(wy, wx, feat, out, B, R, P, H, W, C, stream);
 }
 
-// wy (B,R,P,H) f32, wx (B,R,P,W) f32, g (B,R,P,P,C) f32, dfeat (B,H,W,C)
-// f32, zeroed by the caller.
+// Bytes of the scratch scda_roi_align_contract_bwd needs.
+extern "C" long long scda_roi_align_contract_bwd_scratch(int B, int R, int P,
+                                                         int H, int W) {
+  size_t off[5];
+  return static_cast<long long>(
+      bwd_layout(static_cast<long long>(B) * R, P, H, W, off));
+}
+
+// wy (B,R,P,H) f32, wx (B,R,P,W) f32, g (B,R,P,P,C) f32 -> dfeat (B,H,W,C),
+// f32 (out_bf16 == 0) or bf16, every element written; scratch of
+// scda_roi_align_contract_bwd_scratch bytes, 256-byte aligned.
 extern "C" int scda_roi_align_contract_bwd(const void* wy, const void* wx,
-                                           const void* g, void* dfeat, int B,
-                                           int R, int P, int H, int W, int C,
+                                           const void* g, void* dfeat,
+                                           void* scratch, int B, int R, int P,
+                                           int H, int W, int C, int out_bf16,
                                            void* stream) {
-  return launch_bwd(wy, wx, g, dfeat, B, R, P, H, W, C, stream);
+  if (out_bf16)
+    return launch_bwd<__nv_bfloat16>(wy, wx, g, dfeat, scratch, B, R, P, H,
+                                     W, C, stream);
+  return launch_bwd<float>(wy, wx, g, dfeat, scratch, B, R, P, H, W, C,
+                           stream);
 }

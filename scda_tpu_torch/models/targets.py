@@ -42,10 +42,9 @@ def _masked_rank(u: torch.Tensor, mask: torch.Tensor):
     """
     score = torch.where(mask, u, torch.full_like(u, 2.0))
     order = torch.argsort(score, dim=-1, stable=True)
-    n = mask.shape[-1]
-    rank = torch.empty_like(order)
-    rank.scatter_(-1, order,
-                  torch.arange(n, device=mask.device).expand_as(order))
+    # The inverse permutation, by a sort rather than a scatter (which,
+    # under deterministic algorithms, sorts its indices anyway).
+    rank = torch.argsort(order, dim=-1)
     return rank, order
 
 

@@ -124,8 +124,9 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def function(name: str, argtypes: list):
-    """The C entry point ``name`` with its argument types declared.
+def function(name: str, argtypes: list, restype=ctypes.c_int):
+    """The C entry point ``name`` with its argument and result types
+    declared (a CUDA error code by default).
 
     Pointers and the stream must be ``ctypes.c_void_p``: an undeclared
     Python int is passed as a 32-bit int and cuts the pointer.
@@ -134,7 +135,7 @@ def function(name: str, argtypes: list):
     if fn is None:
         fn = getattr(lib(), name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _fns[name] = fn
     return fn
 

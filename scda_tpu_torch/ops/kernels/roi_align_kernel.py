@@ -19,16 +19,13 @@ runs at one channel per thread.  On the H100 the forward is bound by the
 latency of those loads from L2, not by bytes.
 
 The backward is JAX's ``_contract_bwd`` (two einsums there, no Pallas
-call): ``dfeat = sum_{r,p,q} wy * wx * g``, in f32, cast once to the
-features' dtype.  Its kernel (same file) adds into an f32 ``dfeat`` with
-atomics, whose bytes through L2 are what bounds it, so it sends few: a
-block per (b, r) and 64-channel slice stages its slice of ``g`` in shared
-memory, lists the pixels the roi touches with the bins that reach each,
-sums a pixel's contributions in registers and adds them once, four
-channels per ``atomicAdd`` on ``float4``.  The order of the f32 adds
-across rois, and so the rounding of ``dfeat``,
-varies from run to run on the card: it is held to its twin with a
-tolerance, never bit for bit.  The weights get no gradient (zero
+call): ``dfeat = sum_{r,p,q} wy * wx * g``, summed in f32 and stored in
+the features' dtype.  Its kernel (same file) is a gather without
+atomics: a prep launch lists, per roi, the bins that reach each map row
+and column; the main launch gives each dfeat element to one thread,
+which walks the rois, then those bins, in index order and stores the sum
+once.  So two launches on the same inputs give the same bits, and the
+output needs no memset and no cast.  The weights get no gradient (zero
 cotangents in JAX: they come from stop-gradient boxes); asking for one
 raises.
 
@@ -127,31 +124,38 @@ def roi_align_contract_fwd(wy: torch.Tensor, wx: torch.Tensor,
 def roi_align_contract_bwd(wy: torch.Tensor, wx: torch.Tensor,
                            g: torch.Tensor, height: int, width: int,
                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """dfeat (B, height, width, C) in ``dtype`` from the cotangent g
-    (B, R, P, P, C) of :func:`roi_align_contract_fwd`'s output.  CPU
-    tensors take the plain twin; CUDA tensors launch the kernel into an
-    f32 buffer, cast once."""
+    """dfeat (B, height, width, C) in ``dtype`` (float32 or bfloat16) from
+    the cotangent g (B, R, P, P, C) of :func:`roi_align_contract_fwd`'s
+    output.  CPU tensors take the plain twin; CUDA tensors launch the
+    kernel, which writes every element of dfeat once, in ``dtype``."""
     _build.refuse_grad("roi_align_contract_bwd", (wy, wx, g), _USE_AUTOGRAD)
     if g.device.type == "cpu":
         return roi_align_contract_bwd_plain(wy, wx, g, dtype)
     name = "roi_align_contract_bwd"
     _check_cuda(name, [("g", g), ("wy", wy), ("wx", wx)])
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype must be float32 or bfloat16, got "
+                        f"{dtype}")
     b, r, p, q, c = g.shape
     if q != p or _shapes(name, wy, wx, b, height, width) != (r, p):
         raise ValueError(f"{name}: g {tuple(g.shape)} does not match wy "
                          f"{tuple(wy.shape)}")
 
-    dfeat = torch.zeros((b, height, width, c), dtype=torch.float32,
-                        device=g.device)
+    size = _build.function("scda_roi_align_contract_bwd_scratch",
+                           [ctypes.c_int] * 5, ctypes.c_longlong)
+    scratch = torch.empty(size(b, r, p, height, width), dtype=torch.uint8,
+                          device=g.device)
+    dfeat = torch.empty((b, height, width, c), dtype=dtype, device=g.device)
     fn = _build.function("scda_roi_align_contract_bwd",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p])
     with torch.cuda.device(g.device):
         rc = fn(wy.data_ptr(), wx.data_ptr(), g.data_ptr(), dfeat.data_ptr(),
-                b, r, p, height, width, c, _build.stream_ptr(g.device))
+                scratch.data_ptr(), b, r, p, height, width, c,
+                int(dtype == torch.bfloat16), _build.stream_ptr(g.device))
     _build.check(rc, "scda_roi_align_contract_bwd")
     roi_align_contract_bwd.launches += 1
-    return dfeat.to(dtype)
+    return dfeat
 
 
 class _RoiAlignContract(torch.autograd.Function):

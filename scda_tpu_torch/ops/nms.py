@@ -32,18 +32,15 @@ class NmsResult(NamedTuple):
 def _keep_mask_to_result(keep: torch.Tensor, order: torch.Tensor,
                          max_output: int) -> NmsResult:
     """(B, N) keep mask over sorted boxes -> (B, max_output) result in the
-    caller's index space, in score order.  A cumsum and a scatter instead
-    of ``torch.nonzero``, which syncs with the host."""
+    caller's index space, in score order.  The j-th kept box is the first
+    whose running count of keeps reaches j + 1: a cumsum and a search in
+    it, instead of ``torch.nonzero`` (which syncs with the host) or a
+    scatter (which, under deterministic algorithms, sorts its indices)."""
     b, n = keep.shape
-    pos = torch.cumsum(keep, dim=-1) - 1
-    slot = torch.where(keep & (pos < max_output), pos,
-                       torch.full_like(pos, max_output))
-    kept_pos = torch.zeros((b, max_output + 1), dtype=torch.int64,
-                           device=keep.device)
-    src = torch.arange(n, device=keep.device).expand(b, n)
-    # Slot max_output collects everything not kept and is dropped.
-    kept_pos.scatter_(1, slot, src)
-    kept_pos = kept_pos[:, :max_output]
+    kept = torch.cumsum(keep, dim=-1)
+    want = torch.arange(1, max_output + 1, device=keep.device)
+    kept_pos = torch.searchsorted(kept, want.expand(b, max_output)
+                                  .contiguous()).clamp_(max=max(n - 1, 0))
     count = keep.sum(dim=-1, keepdim=True)
     out_valid = torch.arange(max_output, device=keep.device)[None] < count
     out_idx = torch.where(out_valid, torch.gather(order, 1, kept_pos),

@@ -40,6 +40,7 @@ import torch.distributed as dist
 
 from scda_tpu_torch.core.draws import RowShard
 from scda_tpu_torch.data.pipeline import DataLoader
+from scda_tpu_torch.utils.numerics import set_card_numerics
 
 
 class World:
@@ -112,8 +113,10 @@ def rank_device(device: torch.device, rank: int) -> torch.device:
 
 def init_world(rank: int, size: int, init_method: str,
                device: torch.device) -> World:
-    """Join the process group (NCCL on CUDA, gloo on the CPU) and bind
-    the rank's device."""
+    """Put the rank in the port's numerics (``utils/numerics.py``), join
+    the process group (NCCL on CUDA, gloo on the CPU) and bind the rank's
+    device."""
+    set_card_numerics()
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)

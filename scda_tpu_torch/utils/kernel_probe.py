@@ -15,8 +15,9 @@ the wrapper, the launches alone, a CUDA-graph replay of them, and
 per-kernel device time from ``torch.profiler`` (K1: the mask pass
 against the scan); each also prints the error against the plain twin.
 To compare two versions of a kernel, run the command from each checkout
-in turn inside one call on one card (the C entry points of K1 and K2
-kept their signatures, so this file also runs from an older checkout).
+in turn inside one call on one card (K1 and K2 are called through their
+Python wrappers, so this file also runs from an older checkout; the K2
+backward line says whether two launches gave the same bits).
 
 ``k1`` draws proposal-like boxes two ways: ``spread`` over the canvas
 (few suppressions: the scan reaches ``max_output`` keeps early in the
@@ -45,6 +46,8 @@ import subprocess
 import sys
 
 import torch
+
+from scda_tpu_torch.utils.numerics import set_card_numerics
 
 STAGES = ((1, 128, 256, 64, 2, 0.3), (1, 64, 128, 128, 3, 0.3),
           (1, 32, 64, 256, 22, 0.1))   # (B, H, W, F, blocks, expand damping)
@@ -230,11 +233,16 @@ def probe_k2(device):
         err = float((rk.roi_align_contract_bwd(wy, wx, g, h, w) - ref)
                     .abs().max())
         bwd = lambda: rk.roi_align_contract_bwd(wy, wx, g, h, w)
+        again = rk.roi_align_contract_bwd(wy, wx, g, h, w)
+        rows = kernel_times(bwd)
         print(f"k2 backward g ({b},{r},7,7,{c}) -> ({b},{h},{w},{c}) f32: max "
               f"abs err {err:.4g} (max |twin| {float(ref.abs().max()):.4g}), "
-              f"wrapper with its memset {time_ms(bwd):.4f} ms, from a graph "
-              f"{time_ms(graph_replay(bwd)):.4f} ms, kernel alone "
-              f"{first_kernel_ms(kernel_times(bwd), 'roi_align'):.4f} ms",
+              f"two launches bit-equal "
+              f"{torch.equal(again, rk.roi_align_contract_bwd(wy, wx, g, h, w))}, "
+              f"wrapper {time_ms(bwd):.4f} ms, from a graph "
+              f"{time_ms(graph_replay(bwd)):.4f} ms, kernels alone: lists "
+              f"{first_kernel_ms(rows, 'roi_align_bwd_lists'):.4f} ms, "
+              f"gather {first_kernel_ms(rows, 'roi_align_contract_bwd'):.4f} ms",
               flush=True)
 
 
@@ -339,7 +347,6 @@ def probe_peaks(device):
     n = 8192
     a = torch.randn((n, n), device=device)
     b = torch.randn((n, n), device=device)
-    torch.backends.cuda.matmul.allow_tf32 = False
     for name, x, y in (("f32 (TF32 off)", a, b),
                        ("bf16", a.bfloat16(), b.bfloat16())):
         ms = time_ms(lambda: x @ y, repeats=10)
@@ -355,6 +362,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA device", file=sys.stderr)
         return 2
+    set_card_numerics()
     device = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

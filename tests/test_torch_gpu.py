@@ -14,6 +14,7 @@ import torch
 from scda_tpu_torch.ops.kernels import (
     bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel,
 )
+from scda_tpu_torch.utils.numerics import set_card_numerics
 
 pytestmark = pytest.mark.gpu
 
@@ -22,8 +23,7 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_card_numerics()
     return torch.device("cuda", 0)
 
 
@@ -391,9 +391,9 @@ def _bf16_ulp(v):
 ])
 def test_roi_align_bwd_kernel_matches_twin(cuda, feat_dtype, b, r, p, h, w,
                                            c, dense):
-    """dfeat from the atomicAdd kernel against the einsum twin: f32 at
-    rtol=1e-5 and atol=1e-5 of the largest |dfeat| (the order of the
-    adds varies, and an element that cancels keeps the rounding of its
+    """dfeat from the gather kernel against the einsum twin: f32 at
+    rtol=1e-5 and atol=1e-5 of the largest |dfeat| (the two sum in other
+    orders, and an element that cancels keeps the rounding of its
     largest terms); bf16 within 2 ulps.  ``dense``: every tap nonzero,
     as adaptive rows can be."""
     g = torch.Generator(device=cuda).manual_seed(r * c)
@@ -415,6 +415,43 @@ def test_roi_align_bwd_kernel_matches_twin(cuda, feat_dtype, b, r, p, h, w,
     else:
         ref = ref.float()
         assert bool(((out.float() - ref).abs() <= 2 * _bf16_ulp(ref)).all())
+
+
+@pytest.mark.parametrize("b,r,c,stride", [
+    (8, 128, 512, 16),      # VGG16 train bs 8: g (8, 128, 7, 7, 512)
+    (1, 128, 1024, 8),      # res101-ms train: both levels
+    (1, 128, 1024, 16),
+])
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_repeats_bit_for_bit(cuda, b, r, c, stride,
+                                                  feat_dtype):
+    """Two launches of the K2 backward on the same inputs, at the training
+    paths' shapes (proposal-like rois, two samples per bin edge), give
+    equal bits, and both stay within the twin's tolerances: f32 rtol
+    1e-5, atol 1e-5 of the largest |dfeat|; bf16 within 2 ulps."""
+    from scda_tpu_torch.ops import roi_ops
+    from scda_tpu_torch.utils.kernel_probe import proposal_boxes
+
+    h, w = 512 // stride, 1024 // stride
+    gen = torch.Generator().manual_seed(stride)
+    wy, wx = roi_ops.roi_align_axis_weights(
+        proposal_boxes(gen, b, r, False).to(cuda), h, w, output_size=7,
+        spatial_scale=1.0 / stride, sampling_ratio=2)
+    cot = torch.randn((b, r, 7, 7, c), generator=gen).to(cuda)
+    first = roi_align_kernel.roi_align_contract_bwd(wy, wx, cot, h, w,
+                                                    feat_dtype)
+    second = roi_align_kernel.roi_align_contract_bwd(wy, wx, cot, h, w,
+                                                     feat_dtype)
+    assert torch.equal(first, second)
+    ref = roi_align_kernel.roi_align_contract_bwd_plain(wy, wx, cot,
+                                                        feat_dtype)
+    if feat_dtype == torch.float32:
+        torch.testing.assert_close(first, ref, rtol=1e-5,
+                                   atol=1e-5 * ref.abs().max().item())
+    else:
+        ref = ref.float()
+        assert bool(((first.float() - ref).abs()
+                     <= 2 * _bf16_ulp(ref)).all())
 
 
 @pytest.mark.parametrize("sampling_ratio", [2, 0])

@@ -21,6 +21,7 @@
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import jax
@@ -38,6 +39,7 @@ from scda_tpu_torch.models.faster_rcnn import (
 from test_torch_parallel import port_config
 from test_torch_train import train_config
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADS = {"RCNN_cls_score.weight": 0.01, "RCNN_bbox_pred.weight": 0.001}
 # Stddev of a unit normal truncated at +-2.
 TRUNC2_STD = 0.87962566103423978
@@ -169,6 +171,35 @@ def test_chip_smoke_runs_the_oracle_protocol():
     assert chip_smoke.ORACLE == dict(scenes=4, max_objects=2, data_seed=7,
                                      batch_size=2, loader_seed=0,
                                      init_seed=0, steps=200, map_min=0.3)
+
+
+@pytest.mark.parametrize("name, script", [
+    ("learning_ab", "scripts/scda_ab_demo.sh"),
+    ("car", "scripts/scda_car_ab.sh"),
+])
+def test_chip_smoke_runs_the_script_protocols(name, script):
+    """``chip_smoke.py`` passes the port's CLIs what the JAX repo's
+    script passes its own: each stage's steps and learning rate, the
+    SCDA arm's target, and the protocol's classes and ``--set`` overrides
+    (the car protocol's class-agnostic head, alternating D/G), to
+    training and evaluation alike.  What it changes on purpose: every
+    step logged, seeds 3-5 per arm, 32 val scenes."""
+    import chip_smoke
+
+    proto = chip_smoke.PROTOCOLS[name]
+    assert proto["script"] == script
+    with open(os.path.join(REPO, script)) as f:
+        text = " ".join(f.read().split())
+    for flags in (chip_smoke.AB_SOURCE[:4], chip_smoke.AB_ARM[:4],
+                  chip_smoke.AB_SCDA, proto["train"], proto["set"],
+                  proto["scda_set"]):
+        assert " ".join(flags) in text, flags
+    assert proto["eval"] == proto["train"]
+    assert chip_smoke.AB_NET == "vgg16" and "--net vgg16" in text
+    assert "--bs 1" in text and "--synth_images 16" in text
+    assert " ".join(chip_smoke.AB_COMMON[:6]) == (
+        "--dataset synthetic --bs 1 --synth_images 16")
+    assert chip_smoke.AB_VAL_IMAGES == 32 and chip_smoke.AB_SEEDS == (3, 4, 5)
 
 
 def test_port_overfits_four_scenes_to_map(tmp_path):

@@ -101,14 +101,21 @@ def test_batched_nms_matches_lax(rng, tied):
     np.testing.assert_array_equal(out.indices.numpy(), np.asarray(ref.indices))
 
 
-def test_keep_mask_to_result_matches_jax(rng):
-    keep = rng.rand(3, 50) < 0.3
+@pytest.mark.parametrize("p, max_out", [
+    (0.3, 8),       # fewer slots than keeps
+    (1.0, 8),       # every box kept
+    (0.0, 8),       # none kept
+    (0.3, 60),      # more slots than boxes
+])
+def test_keep_mask_to_result_matches_jax(rng, p, max_out):
+    keep = rng.rand(3, 50) < p
     order = np.stack([rng.permutation(50) for _ in range(3)]).astype(np.int32)
     out = tnms._keep_mask_to_result(torch.from_numpy(keep),
-                                    torch.from_numpy(order.astype(np.int64)), 8)
+                                    torch.from_numpy(order.astype(np.int64)),
+                                    max_out)
     for i in range(3):
         ref = jnms._keep_mask_to_result(jnp.asarray(keep[i]),
-                                        jnp.asarray(order[i]), 8)
+                                        jnp.asarray(order[i]), max_out)
         np.testing.assert_array_equal(out.indices[i].numpy(),
                                       np.asarray(ref.indices))
         np.testing.assert_array_equal(out.valid[i].numpy(),

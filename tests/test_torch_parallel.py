@@ -40,6 +40,18 @@ from scda_tpu_torch.parallel import mesh
 from test_torch_train import train_batch, train_params
 from torch_parallel_worker import STEPS, run_steps
 
+import torch_numerics_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _kept_numerics():
+    """The CLIs' ``main`` sets the process-wide numerics
+    (``scda_tpu_torch/utils/numerics.py``); they go back to what they
+    were once this module is done."""
+    with torch_numerics_state.kept():
+        yield
+
+
 TINY_SET = ["--set", "train.proposal.pre_nms_top_n=200",
             "train.proposal.post_nms_top_n=50",
             "train.rpn_target.batch_size=64", "train.roi_target.batch_size=32",

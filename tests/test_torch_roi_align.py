@@ -230,8 +230,10 @@ def test_multiscale_pool_differentiates_as_jax(rng):
 # weight rows are compacted once, in index order; a roi whose longest row
 # has at most _TAPS taps takes loops of fixed length _TAPS guarded by the
 # counts, any other roi the general loops over the same lists.  The
-# backward lists, per touched map row and column, the bins that reach it,
-# and gathers per touched pixel instead of scattering per tap pair.
+# backward lists, per roi, the bins that reach each map row and column
+# and the rectangle the roi touches; then every dfeat pixel is summed by
+# one thread over the rois whose rectangle meets its tile, r, p, q in
+# index order, and stored once.
 
 _TAPS = 4     # kTaps in csrc/roi_align.cu
 
@@ -267,37 +269,49 @@ def _contract_model(wy, wx, feat):
     return out, unrolled
 
 
-def _column_lists(weights):
-    """``list_columns`` of the kernel: for every column of a (P, len)
-    weight matrix that holds a nonzero, in order, its index and its
-    (p, weight) entries."""
-    return [(i, [(p, weights[p, i]) for p in range(weights.shape[0])
-                 if weights[p, i] != 0])
-            for i in range(weights.shape[1]) if (weights[:, i] != 0).any()]
+_TILE = (2, 8)   # kTileH, kTileW in csrc/roi_align.cu
+
+
+def _entry_lists(weights):
+    """``list_entries`` of the kernel: for every column i of a (P, len)
+    weight matrix, the rows p with a nonzero, in order, as (p, weight),
+    and the first and last column with an entry (len, -1 if none)."""
+    lists = [[(p, weights[p, i]) for p in range(weights.shape[0])
+              if weights[p, i] != 0] for i in range(weights.shape[1])]
+    touched = [i for i, e in enumerate(lists) if e]
+    span = (touched[0], touched[-1]) if touched else (weights.shape[1], -1)
+    return lists, span
 
 
 def _contract_bwd_model(wy, wx, g, h, w):
-    """The backward kernel's gather: per roi, each touched pixel sums
-    wy[p, h] * sum_q wx[q, w] * g[p, q] over the bins listed for its row
-    and column, and is added to dfeat once."""
+    """The backward kernel's gather: per tile of _TILE pixels, the rois
+    whose rectangle meets it, in r order; per pixel, over those rois,
+    sum_{p at h} wy[p, h] * sum_{q at w} wx[q, w] * g[p, q]; every pixel
+    stored once.  Returns dfeat and the stores made."""
     b, r = wy.shape[:2]
-    dfeat = np.zeros((b, h, w, g.shape[-1]), np.float32)
-    adds = 0
+    dfeat = np.full((b, h, w, g.shape[-1]), np.nan, np.float32)
+    stores = 0
     for bi in range(b):
-        for ri in range(r):
-            rows = _column_lists(wy[bi, ri])
-            cols = _column_lists(wx[bi, ri])
-            for hi, h_bins in rows:
-                for wi, w_bins in cols:
-                    acc = np.zeros(g.shape[-1], np.float32)
-                    for p, a in h_bins:
-                        t = np.zeros_like(acc)
-                        for q, bq in w_bins:
-                            t += bq * g[bi, ri, p, q]
-                        acc += a * t
-                    dfeat[bi, hi, wi] += acc
-                    adds += 1
-    return dfeat, adds
+        rows = [_entry_lists(wy[bi, ri]) for ri in range(r)]
+        cols = [_entry_lists(wx[bi, ri]) for ri in range(r)]
+        for h0 in range(0, h, _TILE[0]):
+            for w0 in range(0, w, _TILE[1]):
+                h1, w1 = min(h0 + _TILE[0], h) - 1, min(w0 + _TILE[1], w) - 1
+                cand = [ri for ri in range(r)
+                        if rows[ri][1][0] <= h1 and rows[ri][1][1] >= h0
+                        and cols[ri][1][0] <= w1 and cols[ri][1][1] >= w0]
+                for hi in range(h0, h1 + 1):
+                    for wi in range(w0, w1 + 1):
+                        acc = np.zeros(g.shape[-1], np.float32)
+                        for ri in cand:
+                            for p, a in rows[ri][0][hi]:
+                                t = np.zeros_like(acc)
+                                for q, bq in cols[ri][0][wi]:
+                                    t += bq * g[bi, ri, p, q]
+                                acc += a * t
+                        dfeat[bi, hi, wi] = acc
+                        stores += 1
+    return dfeat, stores
 
 
 @pytest.mark.parametrize("case", ["sparse", "long_row", "dense",
@@ -333,10 +347,15 @@ def test_tap_compaction_model_matches_plain_twins(rng, case):
     if case == "zero_row":
         assert not out[0, 3].any() and not out[1, 4, :, 2].any()
 
-    back, adds = _contract_bwd_model(wy, wx, g, H, W)
+    back, stores = _contract_bwd_model(wy, wx, g, H, W)
     ref = roi_align_kernel.roi_align_contract_bwd_plain(
         twy, twx, torch.from_numpy(g)).numpy()
     np.testing.assert_allclose(back, ref, rtol=1e-5, atol=1e-5)
-    # One add per touched pixel: never more than one per tap pair.
-    pairs = int(((wy != 0).sum(-1).sum(-1) * (wx != 0).sum(-1).sum(-1)).sum())
-    assert adds <= pairs and (case != "sparse" or adds < pairs)
+    # One store per pixel of the map, touched or not: no memset, no adds.
+    assert stores == b * H * W
+    if case == "zero_row":   # roi (0, 3) reaches no row: it adds nothing
+        keep = np.ones(r, bool)
+        keep[3] = False
+        part, _ = _contract_bwd_model(wy[:1, keep], wx[:1, keep],
+                                      g[:1, keep], H, W)
+        np.testing.assert_array_equal(part, back[:1])

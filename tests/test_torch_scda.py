@@ -38,6 +38,18 @@ from scda_tpu_torch.core.grad_reverse import grad_reverse, scaled_gradient
 from scda_tpu_torch.core.kmeans import kmeans
 from scda_tpu_torch.models.discriminator import PatchDiscriminator
 
+import torch_numerics_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _kept_numerics():
+    """The CLIs' ``main`` sets the process-wide numerics
+    (``scda_tpu_torch/utils/numerics.py``); they go back to what they
+    were once this module is done."""
+    with torch_numerics_state.kept():
+        yield
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

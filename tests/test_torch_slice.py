@@ -46,6 +46,18 @@ from scda_tpu_torch.models.faster_rcnn import build_model, pool_rois
 from scda_tpu_torch.models.rpn import propose
 from test_torch_resnet import resnet_trees
 
+import torch_numerics_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _kept_numerics():
+    """The CLIs' ``main`` sets the process-wide numerics
+    (``scda_tpu_torch/utils/numerics.py``); they go back to what they
+    were once this module is done."""
+    with torch_numerics_state.kept():
+        yield
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -48,6 +48,18 @@ from scda_tpu_torch.models.faster_rcnn import build_model, pool_rois
 from scda_tpu_torch.ops import roi_ops as troi
 from test_torch_slice import _conv, _dense, jax_params
 
+import torch_numerics_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _kept_numerics():
+    """The CLIs' ``main`` sets the process-wide numerics
+    (``scda_tpu_torch/utils/numerics.py``); they go back to what they
+    were once this module is done."""
+    with torch_numerics_state.kept():
+        yield
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

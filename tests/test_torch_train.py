@@ -54,6 +54,18 @@ from scda_tpu_torch.train.steps import (
 from test_torch_slice import jax_params
 from test_torch_targets import jax_draws
 
+import torch_numerics_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _kept_numerics():
+    """The CLIs' ``main`` sets the process-wide numerics
+    (``scda_tpu_torch/utils/numerics.py``); they go back to what they
+    were once this module is done."""
+    with torch_numerics_state.kept():
+        yield
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSSES = ("loss", "rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")
 

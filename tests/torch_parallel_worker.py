@@ -52,3 +52,15 @@ def run_steps(world, device, cfg, state_dict, batches, out_dir):
     name = "single" if world is None else f"rank{world.rank}"
     torch.save(out, os.path.join(out_dir, f"{name}.pt"))
     return 0
+
+
+def report_numerics(world, device, out_dir):
+    """What a rank's process-wide numerics are once ``init_world`` has
+    run, saved to ``out_dir/numerics<r>.json``."""
+    import json
+
+    from torch_numerics_state import read
+
+    with open(os.path.join(out_dir, f"numerics{world.rank}.json"), "w") as f:
+        json.dump(read(), f)
+    return 0

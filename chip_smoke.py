@@ -5,7 +5,7 @@
 
 Drives the port's serving, training and adaptation paths and its other
 entry points (demo, evaluation, data parallelism), with seeded random
-weights, shows that it learns (phase 9), and checks its five CUDA
+weights, shows that it learns (phase 9), and checks its six CUDA
 kernels:
 
   * VGG16 Faster R-CNN (BASELINE config #1): 512x1024 canvas, proposals
@@ -36,14 +36,18 @@ non-zero:
      params; VGG16 at bs 1 and 8, ResNet-101 multiscale at bs 1): img/s,
      losses, peak memory, launches per step, the total loss of a fixed
      batch before and after, and a profiler pass over three steps; K1
-     and K3 at the training shape and the K2 backward against their
-     twins on the inputs a step gives them (K1 with its per-class call's
-     time and bound and, at every shape, its mask pass and its scan
-     apart, from a profiler pass); then
+     and K3 at the training shape, the K2 backward and (ResNet) K4's
+     backward against their twins on the inputs a step gives them (K1
+     with its per-class call's time and bound and, at every shape, its
+     mask pass and its scan apart, from a profiler pass; K4's backward
+     also against its twin at the forward kernel's activations, twice
+     bit-equal, and timed beside the remat it replaced); then
      one f32 step's gradients with the kernels against the same step
      with every wrapper swapped for its twin (also with the twins'
      outputs perturbed by rounding-sized noise, which sets the bound),
-     and its losses against the same step on the CPU;
+     and its losses against the same step on the CPU; last, ResNet-101
+     multiscale through ``cli.trainval`` for 4 steps (finite losses, K4's
+     backward launched twice a step);
   6. scda    — the SCDA adaptation step on VGG16 (BASELINE configs #3 and
      #4: ``cfgs/scda_foggy.yml`` joint at bs 1 and 8, 9 classes;
      ``cfgs/scda_sim10k_car.yml`` car-only, class-agnostic, alternating
@@ -83,8 +87,9 @@ non-zero:
      clean and at fog 0.3; the source loss halves, every clean mAP >=
      0.20), with the JAX package's accuracies beside them in one
      ``learning`` line; then 20 joint SCDA steps of ResNet-101
-     multiscale from the trainer's init (K4 in every step, peak memory,
-     K4's remat backward timed per stage, 5 steps twice bit-equal);
+     multiscale from the trainer's init (K4 and its backward in every
+     step, peak memory, K4's backward against its twin and timed per
+     stage, 5 steps twice bit-equal);
  10. car     — ``scripts/scda_car_ab.sh`` through the same CLIs: one
      class (``--synth_classes car``), a class-agnostic box head, the
      SCDA arms alternating D/G updates, seeds 3-5, 32 val scenes, the
@@ -202,6 +207,11 @@ PEAK_F32_FLOPS = 67e12       # CUDA cores, f32 operands
 PEAK_BYTES_PER_S = 3.35e12   # device memory
 NO_LIBRARY = ("no single PyTorch call computes greedy NMS (torchvision's "
               "nms is absent)")
+NO_CHAIN_BWD_LIBRARY = ("no single PyTorch call computes a bottleneck "
+                        "chain's gradients; remat_ms is the remat this "
+                        "kernel replaced (the twin under autograd)")
+# K4's backward against its twin linearised at the same activations.
+CHAIN_BWD_TOL = 1e-4
 
 
 _T0 = time.perf_counter()
@@ -532,7 +542,9 @@ class Port:
                          "roi_align": roi_align_kernel.roi_align_contract,
                          "roi_align_bwd": roi_align_kernel.roi_align_contract_bwd,
                          "vgg_stem": stem_kernel.vgg_stem_fused,
-                         "bottleneck_chain": bottleneck_kernel.bottleneck_chain}
+                         "bottleneck_chain": bottleneck_kernel.bottleneck_chain,
+                         "bottleneck_chain_bwd":
+                             bottleneck_kernel.bottleneck_chain_bwd}
 
     def serving_cfgs(self, preset, **model):
         """(f32, bf16) configs of a preset at the canvas, bf16 weights."""
@@ -819,6 +831,66 @@ class Port:
             **chain_bound(x, w1),
             **library_times(torch, *chain_library(torch, *args), p_out,
                             f"K4 {label}")}
+
+    def check_chain_bwd(self, args, dtype, label, seed):
+        """K4's backward on one stage's inputs (the forward's ``dtype``)
+        and a seeded N(0, 1) cotangent, all seven gradients:
+          * against its twin linearised at the f32 forward kernel's
+            activations (``chain_remat_kernel``): the backward's remat
+            sums in the forward kernel's order, so both see the same
+            relu gates; ||k - p|| <= ``CHAIN_BWD_TOL`` ||p|| per gradient;
+          * against the twin with its own remat (cuBLAS sums in another
+            order, so gates at a pre-activation within rounding of 0 may
+            flip, each moving a gradient by about 1 / sqrt(the map's
+            elements) of its norm): within max(``CHAIN_BWD_TOL``,
+            ``PERTURB_FACTOR`` x the gap that 1 + ``PERTURB`` N(0, 1)
+            noise on the inputs and weights makes in the twin);
+          * two launches bit-equal."""
+        torch = self.torch
+        bk = self.bk
+        x = args[0]
+        g = torch.randn(x.shape, device=x.device, generator=torch.Generator(
+            x.device).manual_seed(100 + seed)).to(dtype)
+        rounded = bk.chain_bwd_operands(x, args[1:], dtype)[:7]
+        k = bk.bottleneck_chain_bwd(*args, g, dtype=dtype)
+        again = bk.bottleneck_chain_bwd(*args, g, dtype=dtype)
+        at = bk.bottleneck_chain_bwd_plain(*rounded, g, dtype=torch.float32,
+                                           remat=bk.chain_remat_kernel(
+                                               *rounded))
+        own = bk.bottleneck_chain_bwd_plain(*rounded, g, dtype=torch.float32)
+
+        def rel(a, b):
+            return [float((u - v).norm() / v.norm()) for u, v in zip(a, b)]
+
+        pert = [0.0] * 7
+        for s in PERTURB_SEEDS:
+            noise = self.perturbed(s, x.device)
+            noisy = [noise(0, t) for t in rounded]
+            pert = list(map(max, pert, rel(bk.bottleneck_chain_bwd_plain(
+                *noisy, g, dtype=torch.float32), own)))
+        rel_at, rel_own = rel(k, at), rel(k, own)
+        bound_own = [max(CHAIN_BWD_TOL, PERTURB_FACTOR * v) for v in pert]
+        equal = all(torch.equal(a, b) for a, b in zip(k, again))
+        finite = all(bool(torch.isfinite(t).all()) for t in k)
+        out = {"stage": label, "x": list(x.shape), "F": int(args[1].shape[2]),
+               "blocks": int(args[1].shape[0]), "dtype": str(dtype),
+               "max_abs_err": max(float((a - b).abs().max())
+                                  for a, b in zip(k, at)),
+               "max_rel_err": max(rel_at),
+               "rel_err": dict(zip(bk.GRAD_NAMES, rel_at)),
+               "tolerance": f"||k - p|| <= {CHAIN_BWD_TOL} ||p||, p the twin "
+                            f"at the forward kernel's activations",
+               "rel_err_own_remat": dict(zip(bk.GRAD_NAMES, rel_own)),
+               "bound_own_remat": dict(zip(bk.GRAD_NAMES, bound_own)),
+               "two_launches_bit_equal": equal, "finite": finite}
+        require(finite and max(rel_at) <= CHAIN_BWD_TOL,
+                f"K4 backward {label}: off its twin at the kernel's "
+                f"activations by {out['rel_err']} (bound {CHAIN_BWD_TOL})")
+        require(all(a <= b for a, b in zip(rel_own, bound_own)),
+                f"K4 backward {label}: off its twin's own remat by "
+                f"{out['rel_err_own_remat']}, bound {out['bound_own_remat']}")
+        require(equal, f"K4 backward {label}: two launches differ")
+        return out
 
     def check_stem(self, x, k1, b1, k2, b2):
         """K3 on one set of inputs, f32 (rtol=atol=1e-4) and bf16 (2 bf16
@@ -1356,7 +1428,7 @@ def vgg16_path(port, device, frames):
                               "vgg16")
     n = VGG_REPEATS * len(images)
     want = {"nms": 2 * n, "roi_align": n, "roi_align_bwd": 0, "vgg_stem": n,
-            "bottleneck_chain": 0}
+            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0}
     require(launches == want,
             f"VGG16 path launches {launches}, expected {want}")
 
@@ -1414,7 +1486,7 @@ def res101_ms_path(port, device, frames):
                               "res101_ms")
     n = RES_REPEATS * len(images)
     want = {"nms": 2 * n, "roi_align": 2 * n, "roi_align_bwd": 0,
-            "vgg_stem": 0, "bottleneck_chain": 3 * n}
+            "vgg_stem": 0, "bottleneck_chain": 3 * n, "bottleneck_chain_bwd": 0}
     require(launches == want,
             f"res101-ms path launches {launches}, expected {want}")
 
@@ -1554,7 +1626,7 @@ def vgg16_train_path(port, device, frames):
     """VGG16 training: bs 1 and 8 (K1, K2 forward and backward, K3), the
     kernel checks on the bs=8 step's inputs, the f32 gradient check."""
     want = {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "vgg_stem": 1,
-            "bottleneck_chain": 0}
+            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0}
     launches, records = {}, {}
     for bs in (1, 8):
         _, cfg16 = port.train_cfgs("vgg16", bs)
@@ -1579,8 +1651,9 @@ def vgg16_train_path(port, device, frames):
 
 def res101_ms_train_path(port, device, frames):
     """ResNet-101 multiscale training at bs 1 (K4 forward on the three
-    stages, K1, K2 forward and backward on both levels), the kernel
-    checks, the f32 gradient check (layer2/layer3 through K4)."""
+    stages and its backward on layer2 and layer3, K1, K2 forward and
+    backward on both levels), the kernel checks, the f32 gradient check
+    (layer2/layer3 through K4), then ``cli.trainval`` for 4 steps."""
     here = os.path.dirname(os.path.abspath(__file__))
     yaml = os.path.join(here, "cfgs", "res101_ms.yml")
     cfg32, cfg16 = port.train_cfgs("res101", 1, yaml)
@@ -1588,7 +1661,7 @@ def res101_ms_train_path(port, device, frames):
             and cfg16.train.weight_decay == 1e-4,
             "cfgs/res101_ms.yml did not give the res101-ms train config")
     want = {"nms": 1, "roi_align": 2, "roi_align_bwd": 2, "vgg_stem": 0,
-            "bottleneck_chain": 3}
+            "bottleneck_chain": 3, "bottleneck_chain_bwd": 2}
     model = port.train_model(cfg16, device)
     state_dict = {k: v.clone() for k, v in model.state_dict().items()}
     launches, records = port.train_run(
@@ -1597,10 +1670,14 @@ def res101_ms_train_path(port, device, frames):
         record=True)
     del model
     summary = train_kernel_checks(port, records, "res101_ms_train")
+    summary["bottleneck_chain_bwd"] = chain_bwd_checks(
+        port, records["bottleneck_chain"], "res101_ms_train")
+    del records
     port.grad_check(cfg32, state_dict, port.train_batches(frames, 1, device)[0],
                     "res101_ms_train",
                     ("RCNN_base.5.", "RCNN_base.6."))
-    return summary, {"res101_ms_train_bs1": launches}
+    return summary, {"res101_ms_train_bs1": launches,
+                     "res101_ms_trainval_cli": res101_trainval_cli(port)}
 
 
 def scda_kernel_checks(port, records, cfg, tag):
@@ -1732,7 +1809,7 @@ def vgg16_scda_path(port, device, frames):
     boxes of the joint steps, the f32 gradient check of the joint step."""
     here = os.path.dirname(os.path.abspath(__file__))
     want = {"nms": 2, "roi_align": 3, "roi_align_bwd": 3, "vgg_stem": 2,
-            "bottleneck_chain": 0}
+            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0}
     foggy = os.path.join(here, "cfgs", "scda_foggy.yml")
     car = os.path.join(here, "cfgs", "scda_sim10k_car.yml")
     cfg32, cfg16 = port.train_cfgs("vgg16", 1, foggy)
@@ -2057,7 +2134,8 @@ def vgg16_surface_path(port, device, frames):
         surface_demo(port, device, cfg16, state, root, tmp)
         # The demo's two forwards and the two reference forwards.
         delta(port, zero, {"nms": 8, "roi_align": 4, "roi_align_bwd": 0,
-                           "vgg_stem": 4, "bottleneck_chain": 0}, "demo")
+                           "vgg_stem": 4, "bottleneck_chain": 0,
+                           "bottleneck_chain_bwd": 0}, "demo")
         for mode in ("pool", "crop"):
             before = launch_counts(port)
             surface_pooling(port, device, state, images, infos, frames, mode)
@@ -2066,17 +2144,20 @@ def vgg16_surface_path(port, device, frames):
             f = 1 + N_FRAMES * (SURFACE_REPEATS + 2) + 4
             delta(port, before, {"nms": 2 * f, "roi_align": 0,
                                  "roi_align_bwd": 0, "vgg_stem": f,
-                                 "bottleneck_chain": 0}, f"{mode} serving")
+                                 "bottleneck_chain": 0,
+                                 "bottleneck_chain_bwd": 0}, f"{mode} serving")
         before = launch_counts(port)
         surface_test_net(port, device, root, tmp)
         delta(port, before, {"nms": 2 * N_FRAMES, "roi_align": N_FRAMES,
                              "roi_align_bwd": 0, "vgg_stem": N_FRAMES,
-                             "bottleneck_chain": 0}, "test_net")
+                             "bottleneck_chain": 0,
+                             "bottleneck_chain_bwd": 0}, "test_net")
         before = launch_counts(port)
         surface_data_parallel(port, device, frames, tmp)
         s = 2 + 2 * (1 + DDP_STEPS)
         delta(port, before, {"nms": s, "roi_align": s, "roi_align_bwd": s,
-                             "vgg_stem": s, "bottleneck_chain": 0},
+                             "vgg_stem": s, "bottleneck_chain": 0,
+                             "bottleneck_chain_bwd": 0},
               "data-parallel steps")
         launches = launch_counts(port)
         emit({"phase": "surface_done", "path": "vgg16_surface",
@@ -2090,13 +2171,17 @@ def vgg16_surface_path(port, device, frames):
 # launches one unit of each makes.
 BENCH_UNITS = {
     "inference_bs8": {"nms": 2, "roi_align": 1, "roi_align_bwd": 0,
-                      "vgg_stem": 1, "bottleneck_chain": 0},
+                      "vgg_stem": 1, "bottleneck_chain": 0,
+                      "bottleneck_chain_bwd": 0},
     "res101_bs8": {"nms": 2, "roi_align": 2, "roi_align_bwd": 0,
-                   "vgg_stem": 0, "bottleneck_chain": 3},
+                   "vgg_stem": 0, "bottleneck_chain": 3,
+                   "bottleneck_chain_bwd": 0},
     "train_bs16": {"nms": 1, "roi_align": 1, "roi_align_bwd": 1,
-                   "vgg_stem": 1, "bottleneck_chain": 0},
+                   "vgg_stem": 1, "bottleneck_chain": 0,
+                   "bottleneck_chain_bwd": 0},
     "scda_car_bs8": {"nms": 2, "roi_align": 3, "roi_align_bwd": 3,
-                     "vgg_stem": 2, "bottleneck_chain": 0},
+                     "vgg_stem": 2, "bottleneck_chain": 0,
+                     "bottleneck_chain_bwd": 0},
 }
 
 
@@ -2197,12 +2282,14 @@ def record_forward(port, model, image, info, cfg):
 
 def merge_summaries(into, summary):
     """Adds one path's (or one unit's) kernel summaries to ``into``: the
-    largest ``max_abs_err``, and each other key as first seen."""
+    largest ``max_abs_err`` and ``max_rel_err``, and each other key as
+    first seen."""
     for kernel, values in summary.items():
         slot = into.setdefault(kernel, {})
         for key, value in values.items():
             slot[key] = (max(slot.get(key, 0.0), value)
-                         if key == "max_abs_err" else slot.get(key, value))
+                         if key in ("max_abs_err", "max_rel_err")
+                         else slot.get(key, value))
 
 
 def bench_batches_path(port, device, frames):
@@ -2851,15 +2938,122 @@ def ab_protocol(port, root, name):
     return out, gates, launches
 
 
-def chain_bwd_bound(x, w1):
-    """K4's backward: the data and weight gradients, twice the forward's
-    operations in bf16; the stream and its cotangent in, its gradient
-    out, each block's weights in and their gradients out."""
+def chain_bwd_bound(x, w1, weights=True):
+    """K4's backward as the JAX ``custom_vjp`` does it, in f32: the remat,
+    the data gradients and (``weights``) the weight gradients, each the
+    forward's operations, at the f32 peak; the stream and its cotangent
+    in and x's gradient out (x's dtype), each block's f32 weights in and
+    (``weights``) their gradients out.  ``bound_bf16_ms``: twice the
+    forward's operations at the bf16 peak, with the bytes of the bf16
+    stream and weights: the gradients without a remat, what a bf16
+    backward that kept the forward's activations could reach."""
     fwd = chain_bound(x, w1)
     m, c = x.numel() // x.shape[-1], x.shape[-1]
-    weights = fwd["bytes"] - 2 * m * c * 2
-    return roofline(2 * fwd["flops"], 3 * m * c * 2 + 2 * weights,
-                    PEAK_BF16_FLOPS)
+    n, f = int(w1.shape[0]), int(w1.shape[2])
+    w_bytes = n * (2 * c * f + 9 * f * f + 2 * f + c) * 4
+    out = roofline((3 if weights else 2) * fwd["flops"],
+                   3 * m * c * x.element_size()
+                   + (2 if weights else 1) * w_bytes, PEAK_F32_FLOPS)
+    bf16_weights = fwd["bytes"] - 2 * m * c * 2
+    out["bound_bf16_ms"] = roofline(2 * fwd["flops"],
+                                    3 * m * c * 2 + 2 * bf16_weights,
+                                    PEAK_BF16_FLOPS)["bound_ms"]
+    return out
+
+
+def chain_bwd_checks(port, calls, path):
+    """K4's backward on each recorded chain call that the path
+    differentiates (layer2 and layer3; layer1 is frozen), against its
+    twin (:meth:`Port.check_chain_bwd`), with times per stage: the kernel
+    with the path's gradients, its twin, and the remat it replaced (the
+    twin's forward re-run in f32 under autograd, then
+    ``torch.autograd.grad``).  Returns the kernel's summary."""
+    torch = port.torch
+    stages = []
+    for i, (args, kwargs) in enumerate(calls):
+        needs = tuple(bool(a.requires_grad) for a in args)
+        if not any(needs):
+            continue
+        args = tuple(a.detach() for a in args)
+        dt = kwargs.get("dtype", torch.bfloat16)
+        label = f"layer{i + 1}"
+        check = port.check_chain_bwd(args, dt, label, seed=i)
+        g = torch.randn(args[0].shape, device=args[0].device,
+                        generator=torch.Generator(args[0].device)
+                        .manual_seed(i)).to(dt)
+        rounded = port.bk.chain_bwd_operands(args[0], args[1:], dt)[:7]
+        leaves = [t.clone().requires_grad_(need)
+                  for t, need in zip(rounded, needs)]
+        wrt = [t for t in leaves if t.requires_grad]
+
+        def remat():
+            y = port.bk.bottleneck_chain_plain(*leaves, dtype=torch.float32)
+            return torch.autograd.grad(y, wrt, g.float())
+
+        stages.append({
+            **check, "needs": [n for n, need in zip(
+                port.bk.GRAD_NAMES, needs) if need],
+            "ms": time_ms(torch, lambda: port.bk.bottleneck_chain_bwd(
+                *args, g, dtype=dt, needs=needs), 10),
+            "plain_ms": time_ms(torch, lambda: port.bk.
+                                bottleneck_chain_bwd_plain(
+                                    *args, g, dtype=dt, needs=needs), 3),
+            "remat_ms": time_ms(torch, remat, 3),
+            **chain_bwd_bound(args[0], args[1], weights=any(needs[1:]))})
+    require(stages, f"{path}: no K4 call under autograd was recorded")
+    summary = {
+        "max_abs_err": max(st["max_abs_err"] for st in stages),
+        "max_rel_err": max(st["max_rel_err"] for st in stages),
+        **{key: sum(st[key] for st in stages)
+           for key in ("ms", "plain_ms", "remat_ms", "bound_ms",
+                       "bound_bf16_ms", "flops", "bytes")},
+        "bound_by": max(stages, key=lambda st: st["bound_ms"])["bound_by"],
+        "library_ms": None, "library_reason": NO_CHAIN_BWD_LIBRARY,
+        "stages": stages}
+    emit({"phase": "kernel", "path": path, "kernel": "bottleneck_chain_bwd",
+          **summary})
+    return summary
+
+
+def res101_trainval_cli(port, steps=4):
+    """``cli.trainval --net res101 --cfg_file cfgs/res101_ms.yml
+    --dataset synthetic --bs 1 --steps 4`` through its ``main`` in this
+    process (checkpoints in a temp dir outside the checkout), with every
+    launch count set to 0 just before and read just after: finite logged
+    losses at every step, and K4 forward 3 and backward 2 a step (layer2
+    and layer3 train; layer1 is frozen)."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    save = tempfile.mkdtemp(prefix="scda_res101_cli_")
+    try:
+        for w in port.wrappers.values():
+            w.launches = 0
+        _, seconds = quiet_cli(port.torch, port.trainval.main, [
+            "--net", "res101", "--cfg_file",
+            os.path.join(here, "cfgs", "res101_ms.yml"), "--dataset",
+            "synthetic", "--bs", "1", "--steps", str(steps),
+            "--disp_interval", "1", "--synth_images", "4",
+            "--save_dir", save], "res101-ms trainval")
+        launches = launch_counts(port)
+        with open(os.path.join(save, "res101", "synthetic",
+                               "metrics.jsonl")) as f:
+            rows = [json.loads(line)["train"] for line in f]
+    finally:
+        shutil.rmtree(save, ignore_errors=True)
+    losses = [r["loss"] for r in rows]
+    emit({"phase": "trainval_cli", "path": "res101_ms_trainval_cli",
+          "steps": steps, "seconds": seconds, "losses": losses,
+          "launches": launches})
+    require([r["step"] for r in rows] == list(range(1, steps + 1))
+            and all(map(math.isfinite, losses)),
+            f"res101-ms trainval: logged losses {losses}")
+    require(launches["bottleneck_chain"] == 3 * steps
+            and launches["bottleneck_chain_bwd"] == 2 * steps,
+            f"res101-ms trainval: launches {launches}, expected K4 "
+            f"{3 * steps} and its backward {2 * steps}")
+    return launches
 
 
 def learning_res101_scda(port, device, frames):
@@ -2871,8 +3065,8 @@ def learning_res101_scda(port, device, frames):
     every step with weights that require grad; the kernel checks on the
     first step's inputs (K1 on both towers, K2 forward and backward on
     the mined regions of the 1024-channel stride-16 map); K4's backward
-    (the twin's f32 remat) timed per stage; the f32 joint step's
-    gradient check from the same init."""
+    against its twin per stage, timed beside the twin and the remat it
+    replaced; the f32 joint step's gradient check from the same init."""
     torch = port.torch
     here = os.path.dirname(os.path.abspath(__file__))
     cfg32, cfg = (port.replace_path(c, "adapt.enabled", True)
@@ -2881,7 +3075,7 @@ def learning_res101_scda(port, device, frames):
     require(cfg.model.multiscale_roi and cfg.adapt.d_update == "joint",
             "res101-ms SCDA: not the joint multiscale config")
     want = {"nms": 2, "roi_align": 4, "roi_align_bwd": 4, "vgg_stem": 0,
-            "bottleneck_chain": 6}
+            "bottleneck_chain": 6, "bottleneck_chain_bwd": 4}
     model = port.build_model(cfg.model, cfg.anchors.num_anchors, device="cpu")
     port.init_params(model, torch.Generator().manual_seed(cfg.train.seed))
     state_dict = {k: v.clone() for k, v in model.state_dict().items()}
@@ -2914,19 +3108,9 @@ def learning_res101_scda(port, device, frames):
     graded = graded[:len(history)]
     summary = scda_kernel_checks(port, records, cfg, "res101_scda")
 
-    # K4's backward on the first step's inputs, per stage.
-    bwd = []
-    for args, kwargs in records["bottleneck_chain"][:3]:   # source tower
-        leaves = [a.detach().requires_grad_() for a in args]
-        y = chain(*leaves, **kwargs)
-        g = torch.randn(y.shape, device=device, dtype=y.dtype,
-                        generator=torch.Generator(device).manual_seed(0))
-        bwd.append({"x": list(args[0].shape), "F": int(args[1].shape[2]),
-                    "blocks": int(args[1].shape[0]),
-                    "ms": time_ms(torch, lambda: torch.autograd.grad(
-                        y, leaves, g, retain_graph=True), 10),
-                    **chain_bwd_bound(args[0], args[1])})
-        del y
+    # K4's backward on the first step's inputs (source tower), per stage.
+    summary["bottleneck_chain_bwd"] = chain_bwd_checks(
+        port, records["bottleneck_chain"][:3], "res101_scda")
     del records
     rerun = runs_twice(port, cfg, lambda: port.train_model(
         cfg, device, state_dict), src, "res101_ms_scda_joint_bs1", tgt)
@@ -2944,7 +3128,8 @@ def learning_res101_scda(port, device, frames):
                                  for k, v in launches.items()},
            "k4_calls_per_step": len(graded[-1]),
            "k4_calls_under_autograd_per_step": sum(graded[-1]),
-           "peak_mem_bytes": peak, "k4_backward_remat": bwd,
+           "peak_mem_bytes": peak,
+           "k4_backward": summary["bottleneck_chain_bwd"]["stages"],
            "rerun": rerun}
     emit({"phase": "learning_res101_scda", **out})
     flat = [v for h in history for v in h.values()]
@@ -3087,6 +3272,9 @@ def main() -> int:
                      "scda_tpu/ops/pallas/stem_kernel.py:152"),
         "bottleneck_chain": ("scda_tpu_torch/csrc/bottleneck_chain.cu",
                              "scda_tpu/ops/pallas/bottleneck_kernel.py:244"),
+        "bottleneck_chain_bwd": (
+            "scda_tpu_torch/csrc/bottleneck_chain_bwd.cu",
+            "scda_tpu/ops/pallas/bottleneck_kernel.py:297"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

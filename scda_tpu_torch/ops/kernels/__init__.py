@@ -1,7 +1,12 @@
 """Hand-written CUDA kernels (csrc/) with their plain PyTorch twins.
 
 Each module holds one kernel's wrapper, its twin of the same signature,
-and a launch counter on the wrapper (``<wrapper>.launches``).
+and a launch counter on the wrapper (``<wrapper>.launches``).  K2 and K4
+also hold a backward kernel, with its own wrapper, twin and counter
+(``roi_align_contract_bwd``, ``bottleneck_chain_bwd``), which their
+``autograd.Function``s call.  :func:`plain_twins` swaps the forward call
+sites only: a swapped-in forward twin is differentiated by autograd, so
+the backward kernels do not run inside it.
 """
 
 from __future__ import annotations

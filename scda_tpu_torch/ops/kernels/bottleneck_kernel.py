@@ -18,11 +18,20 @@ ResNet-101 stage at 512x1024; in practice each of the 3N short launches
 is bound by the L2 traffic of re-reading operand tiles.
 
 Training: :func:`bottleneck_chain` is an ``autograd.Function`` whose
-forward is the kernel and whose backward re-runs the twin under autograd
-in uniform f32 on the bf16-rounded inputs and weights, as the JAX
-``custom_vjp`` does (``bottleneck_kernel.py:304-323``): the linearisation
-point is the kernel's, the per-stage roundings are dropped.  The remat
-holds every block's f32 activations until the backward ends.
+forward is the kernel and whose backward is a second CUDA kernel,
+``csrc/bottleneck_chain_bwd.cu`` (:func:`bottleneck_chain_bwd`).  It does
+what the JAX ``custom_vjp`` does (``bottleneck_kernel.py:297-325``): a
+remat of the chain in uniform f32 on the inputs and weights rounded to
+the forward's dtype (the linearisation point is the kernel's, the
+per-stage roundings are dropped), then the data and weight gradients
+block by block, last to first, in f32 FMAs with no atomics, so that two
+calls give the same bits.  It computes only the gradients autograd asks
+for (the folded biases come from frozen BatchNorm buffers and are never
+asked for in the model).  Its plain twin,
+:func:`bottleneck_chain_bwd_plain`, is the same backward written out in
+plain torch; CPU tensors take it.  The remat holds every block's f32
+activations (about 12.6 MB a block at layer3, 512x1024, bs 1) until the
+call ends.
 """
 
 from __future__ import annotations
@@ -157,6 +166,8 @@ def chain_launcher(x, w1, b1, w2, b2, w3, b3, *, dtype=torch.bfloat16):
         bottleneck_chain.launches += 1
         return out
 
+    # After a launch the scratch holds the last block's y1 and y2.
+    launch.scratch = (y1, y2)
     return launch
 
 
@@ -174,9 +185,193 @@ def bottleneck_chain_fwd(x, w1, b1, w2, b2, w3, b3, *,
     return chain_launcher(x, w1, b1, w2, b2, w3, b3, dtype=dtype)()
 
 
+# The 3x3's taps, (dy, dx) in the order of w2's tap axis.
+TAPS = tuple((t // 3 - 1, t % 3 - 1) for t in range(9))
+GRAD_NAMES = ("x", "w1", "b1", "w2", "b2", "w3", "b3")
+ALL_GRADS = (True,) * 7
+# The weight gradients reduce over the B*H*W pixels; the kernel cuts that
+# axis into splits of partial sums (added in split order afterwards), so
+# that about WGRAD_BLOCKS tiles run at once (four on each of the H100's
+# 132 SMs), with at least WGRAD_MIN_ROWS pixels a split.
+WGRAD_BLOCKS = 528
+WGRAD_MIN_ROWS = 256
+BIAS_CHUNK = 256
+
+
+def wgrad_chunk(m: int, tiles: int) -> int:
+    """Pixels per split of a weight gradient with ``tiles`` 64x64 output
+    tiles over ``m`` pixels: a multiple of 16 (the kernel's slice)."""
+    splits = max(1, min(-(-WGRAD_BLOCKS // tiles), m // WGRAD_MIN_ROWS))
+    return -(-m // (splits * 16)) * 16
+
+
+def _shift(t, dy, dx):
+    """t (B, H, W, K) read at pixel (y + dy, x + dx), zero outside the
+    image."""
+    _, h, w, _ = t.shape
+    p = F.pad(t, (0, 0, 1, 1, 1, 1))
+    return p[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+
+def _rounded(x, ws, dtype):
+    """x and the weights rounded to ``dtype``, then f32: the JAX
+    backward's ``up``."""
+    return [t.detach().to(dtype).float() for t in (x, *ws)]
+
+
+def chain_bwd_operands(x, ws, dtype):
+    """The kernel's operands, contiguous f32: x and the six weights
+    rounded to ``dtype`` (the forward's layouts, for the remat and the
+    weight gradients), then the data gradients' weights as (K, N) with N
+    contiguous: w1t (N, F, C) and w3t (N, C, F) transposed, and w2r (N, 9,
+    F, F) with w2r[i, t, o, c] = w2[i, 8 - t, c, o], so that the 3x3's
+    transpose is the forward's implicit GEMM over the taps reversed."""
+    xr, w1, b1, w2, b2, w3, b3 = (t.contiguous()
+                                  for t in _rounded(x, ws, dtype))
+    return (xr, w1, b1, w2, b2, w3, b3, w1.transpose(1, 2).contiguous(),
+            w2.flip(1).transpose(2, 3).contiguous(),
+            w3.transpose(1, 2).contiguous())
+
+
+def chain_remat_plain(x, w1, b1, w2, b2, w3, b3):
+    """The chain's forward in f32 with every activation kept: (xs, y1s,
+    y2s), x_0 .. x_N and each block's y1 and y2 after their relu."""
+    xs, y1s, y2s = [x], [], []
+    for i in range(w1.shape[0]):
+        y1 = torch.relu(xs[-1] @ w1[i] + b1[i, 0])
+        y2 = torch.relu(sum(_shift(y1, dy, dx) @ w2[i, t]
+                            for t, (dy, dx) in enumerate(TAPS)) + b2[i, 0])
+        xs.append(torch.relu(y2 @ w3[i] + b3[i, 0] + xs[-1]))
+        y1s.append(y1)
+        y2s.append(y2)
+    return xs, y1s, y2s
+
+
+def chain_remat_kernel(x, w1, b1, w2, b2, w3, b3):
+    """:func:`chain_remat_plain` from the forward kernel's f32 path on
+    CUDA tensors, one block a launch (its scratch then holds the block's
+    y1 and y2).  The backward kernel's remat sums every output in the
+    same order, so these are its activations bit for bit: what
+    :func:`bottleneck_chain_bwd_plain` takes as ``remat`` to be held to
+    the kernel at one linearisation point."""
+    xs, y1s, y2s = [x], [], []
+    for i in range(w1.shape[0]):
+        launch = chain_launcher(xs[-1], *(t[i:i + 1] for t in (
+            w1, b1, w2, b2, w3, b3)), dtype=torch.float32)
+        xs.append(launch())
+        y1s.append(launch.scratch[0].clone())
+        y2s.append(launch.scratch[1].clone())
+    return xs, y1s, y2s
+
+
+def bottleneck_chain_bwd_plain(x, w1, b1, w2, b2, w3, b3, g, *,
+                               dtype=torch.bfloat16, needs=ALL_GRADS,
+                               remat=None):
+    """Plain PyTorch twin of :func:`bottleneck_chain_bwd`: the explicit
+    backward in the kernel's order, no autograd.  The remat in f32 on the
+    inputs rounded to ``dtype`` (:func:`chain_remat_plain`; ``remat``
+    gives its (xs, y1s, y2s) instead, to linearise at other activations),
+    then per block, last to first, with g3 the cotangent of its pre-relu
+    output: dW3 = y2^T g3, dy2 = g3 W3^T [y2 > 0], dW2[tap] = shift(y1,
+    tap)^T dy2, dy1 = sum over taps of shift(dy2, -tap) W2[tap]^T [y1 >
+    0], dW1 = x_i^T dy1, dx = dy1 W1^T + g3 (times [x_i > 0]: the
+    previous block's g3); the biases' are the column sums of g3, dy2,
+    dy1.  Returns the seven gradients in f32, in the inputs' shapes,
+    ``None`` where ``needs`` says no."""
+    x, w1, b1, w2, b2, w3, b3 = _rounded(x, (w1, b1, w2, b2, w3, b3), dtype)
+    n = w1.shape[0]
+    xs, y1s, y2s = remat or chain_remat_plain(x, w1, b1, w2, b2, w3, b3)
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def masked(v, y):
+        return torch.where(y > 0, v, torch.zeros((), dtype=v.dtype))
+
+    grads = [[None] * n for _ in range(6)]    # w1, b1, w2, b2, w3, b3
+    g3 = masked(g.detach().float(), xs[n])
+    for i in reversed(range(n)):
+        grads[4][i] = flat(y2s[i]).T @ flat(g3)
+        grads[5][i] = flat(g3).sum(0)[None]
+        dy2 = masked(g3 @ w3[i].T, y2s[i])
+        grads[2][i] = torch.stack([flat(_shift(y1s[i], dy, dx)).T @ flat(dy2)
+                                   for dy, dx in TAPS])
+        grads[3][i] = flat(dy2).sum(0)[None]
+        dy1 = masked(sum(_shift(dy2, -dy, -dx) @ w2[i, t].T
+                         for t, (dy, dx) in enumerate(TAPS)), y1s[i])
+        grads[0][i] = flat(xs[i]).T @ flat(dy1)
+        grads[1][i] = flat(dy1).sum(0)[None]
+        g3 = dy1 @ w1[i].T + g3
+        if i:
+            g3 = masked(g3, xs[i])
+    out = [g3] + [torch.stack(gr) for gr in grads]
+    return tuple(t if need else None for t, need in zip(out, needs))
+
+
+def bottleneck_chain_bwd(x, w1, b1, w2, b2, w3, b3, g, *,
+                         dtype=torch.bfloat16, needs=ALL_GRADS):
+    """The gradients of :func:`bottleneck_chain_fwd`'s inputs from the
+    cotangent ``g`` of its output (shaped as x): seven f32 tensors in
+    the inputs' shapes, ``None`` where ``needs`` (seven bools) says no.
+    CPU tensors take the plain twin; CUDA tensors launch
+    ``scda_bottleneck_chain_bwd_f32`` (``csrc/bottleneck_chain_bwd.cu``),
+    which needs C and F multiples of 64.  Refuses inputs that require
+    grad while grad mode is on."""
+    name = "bottleneck_chain_bwd"
+    _check(x, w1, b1, w2, b2, w3, b3)
+    if tuple(g.shape) != tuple(x.shape) or g.device != x.device:
+        raise ValueError(f"{name}: g must be shaped as x {tuple(x.shape)} on "
+                         f"{x.device}, got {tuple(g.shape)} on {g.device}")
+    if not g.is_floating_point():
+        raise TypeError(f"{name}: g must be floating point")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype must be float32 or bfloat16, got "
+                        f"{dtype}")
+    needs = tuple(bool(v) for v in needs)
+    if len(needs) != 7:
+        raise ValueError(f"{name}: needs must be seven bools, got {needs}")
+    _build.refuse_grad(name, (x, w1, b1, w2, b2, w3, b3, g),
+                       "call bottleneck_chain, whose autograd.Function "
+                       "launches this kernel in its backward")
+    if x.device.type == "cpu":
+        return bottleneck_chain_bwd_plain(x, w1, b1, w2, b2, w3, b3, g,
+                                          dtype=dtype, needs=needs)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    b, h, w, c = x.shape
+    n, _, f = w1.shape
+    if c % 64 or f % 64:
+        raise ValueError(f"{name}: the kernel needs C and F multiples of 64, "
+                         f"got C={c}, F={f}")
+
+    ops = chain_bwd_operands(x, (w1, b1, w2, b2, w3, b3), dtype)
+    gf = g.detach().float().contiguous()
+    m = b * h * w
+    chunks = (wgrad_chunk(m, (c // 64) * (f // 64)),
+              wgrad_chunk(m, 9 * (f // 64) ** 2), BIAS_CHUNK)
+    size = _build.function("scda_bottleneck_chain_bwd_workspace",
+                           [ctypes.c_int] * 9, ctypes.c_longlong)
+    work = torch.empty(size(b, h, w, c, f, n, *chunks), dtype=torch.float32,
+                       device=x.device)
+    outs = [torch.empty(t.shape, dtype=torch.float32, device=x.device)
+            if need else None
+            for t, need in zip((x, w1, b1, w2, b2, w3, b3), needs)]
+    fn = _build.function("scda_bottleneck_chain_bwd_f32",
+                         [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
+                         + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        rc = fn(*(t.data_ptr() for t in ops), gf.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in outs),
+                work.data_ptr(), b, h, w, c, f, n, *chunks,
+                _build.stream_ptr(x.device))
+    _build.check(rc, "scda_bottleneck_chain_bwd_f32")
+    bottleneck_chain_bwd.launches += 1
+    return tuple(outs)
+
+
 class _BottleneckChain(torch.autograd.Function):
-    """Forward: K4 (the twin on the CPU).  Backward: the twin re-run
-    under autograd in f32 on the inputs rounded to ``dtype``."""
+    """Forward: K4.  Backward: the K4 backward kernel in f32 on the inputs
+    rounded to ``dtype`` (the plain twins on the CPU)."""
 
     @staticmethod
     def forward(ctx, dtype, x, *ws):
@@ -187,15 +382,9 @@ class _BottleneckChain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, *ws = ctx.saved_tensors
-
-        def up(t):
-            return t.detach().to(ctx.dtype).float().requires_grad_()
-
-        ins = [up(x)] + [up(w) for w in ws]
-        with torch.enable_grad():
-            y = bottleneck_chain_plain(*ins, dtype=torch.float32)
-        grads = torch.autograd.grad(y, ins, g.float())
-        return (None,) + tuple(gr.to(t.dtype)
+        grads = bottleneck_chain_bwd(x, *ws, g, dtype=ctx.dtype,
+                                     needs=ctx.needs_input_grad[1:])
+        return (None,) + tuple(None if gr is None else gr.to(t.dtype)
                                for gr, t in zip(grads, (x, *ws)))
 
 
@@ -209,3 +398,4 @@ def bottleneck_chain(x, w1, b1, w2, b2, w3, b3, *, dtype=torch.bfloat16):
 
 
 bottleneck_chain.launches = 0
+bottleneck_chain_bwd.launches = 0

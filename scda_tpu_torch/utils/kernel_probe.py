@@ -7,6 +7,7 @@ prints times that explain them.
     python -m scda_tpu_torch.utils.kernel_probe k3
     python -m scda_tpu_torch.utils.kernel_probe k3-phases
     python -m scda_tpu_torch.utils.kernel_probe k4
+    python -m scda_tpu_torch.utils.kernel_probe k4bwd
     python -m scda_tpu_torch.utils.kernel_probe peaks
 
 ``k1`` to ``k4`` time the kernels of this checkout at the shapes of the
@@ -25,6 +26,10 @@ row) and ``clustered`` around a few centres (most boxes suppressed: the
 scan walks the whole row).  ``k2`` takes its axis weights from
 ``roi_align_axis_weights`` on seeded rois, two samples per bin edge as
 on the paths, forward in bf16 and backward on an f32 cotangent.
+``k4bwd`` times K4's backward at the three ResNet-101 stages and layer3
+at bs 8 with the gradients the model asks for (x, w1, w2, w3), beside its
+twin and the remat it replaced (the twin's forward in f32 under
+autograd), and says whether two launches gave the same bits.
 
 ``k3-phases`` compiles copies of ``csrc/vgg_stem.cu`` with one phase of
 the bf16 kernel taken out (conv1_1's sums, conv1_2's taps, both) or with
@@ -282,6 +287,44 @@ def probe_k4(device):
             print(f"    {name[:64]:64s} x{per_call:5.1f}  {us:7.2f} us")
 
 
+def probe_k4bwd(device):
+    from scda_tpu_torch.ops.kernels import bottleneck_kernel as bk
+
+    gen = torch.Generator().manual_seed(0)
+    needs = (True, True, False, True, False, True, False)   # the model's
+    for b, h, w, f, n, damp in STAGES + ((8, 32, 64, 256, 22, 0.1),):
+        args = chain_inputs(gen, b, h, w, f, n, damp, device)
+        g = torch.randn(args[0].shape, generator=gen).to(device, torch.bfloat16)
+        kw = dict(dtype=torch.bfloat16, needs=needs)
+        out = bk.bottleneck_chain_bwd(*args, g, **kw)
+        again = bk.bottleneck_chain_bwd(*args, g, **kw)
+        ref = bk.bottleneck_chain_bwd_plain(*args, g, **kw)
+        rel = max(float((o - r).norm() / r.norm())
+                  for o, r in zip(out, ref) if o is not None)
+        rounded = [t.detach().requires_grad_(need) for t, need in zip(
+            bk.chain_bwd_operands(args[0], args[1:], torch.bfloat16)[:7],
+            needs)]
+
+        def remat():
+            y = bk.bottleneck_chain_plain(*rounded, dtype=torch.float32)
+            return torch.autograd.grad(
+                y, [t for t in rounded if t.requires_grad], g.float())
+
+        call = lambda: bk.bottleneck_chain_bwd(*args, g, **kw)
+        twin = lambda: bk.bottleneck_chain_bwd_plain(*args, g, **kw)
+        equal = all(torch.equal(a, c) for a, c in zip(out, again)
+                    if a is not None)
+        with torch.enable_grad():
+            remat_ms = time_ms(remat, repeats=3)
+        print(f"k4bwd x=({b},{h},{w},{4 * f}) F={f} N={n}: max rel err "
+              f"{rel:.3g} against the twin's own remat, two launches "
+              f"bit-equal {equal}, wrapper {time_ms(call, repeats=10):.4f} "
+              f"ms, twin {time_ms(twin, repeats=3):.4f} ms, remat under "
+              f"autograd {remat_ms:.4f} ms", flush=True)
+        for name, per_call, us in kernel_times(call, calls=3)[:5]:
+            print(f"    {name[:64]:64s} x{per_call:5.1f}  {us:7.2f} us")
+
+
 def probe_k3_phases(device):
     from scda_tpu_torch.ops.kernels import _build
 
@@ -357,7 +400,7 @@ def probe_peaks(device):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("what", choices=("k1", "k2", "k3", "k3-phases", "k4",
-                                         "peaks"))
+                                         "k4bwd", "peaks"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA device", file=sys.stderr)
@@ -371,7 +414,8 @@ def main(argv=None) -> int:
     with torch.no_grad():
         {"k1": probe_k1, "k2": probe_k2, "k3": probe_k3,
          "k3-phases": probe_k3_phases,
-         "k4": probe_k4, "peaks": probe_peaks}[args.what](device)
+         "k4": probe_k4, "k4bwd": probe_k4bwd,
+         "peaks": probe_peaks}[args.what](device)
     return 0
 
 

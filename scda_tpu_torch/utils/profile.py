@@ -22,6 +22,7 @@ KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("K2 roi_align", ("roi_align",)),
     ("K3 vgg_stem", ("vgg_stem",)),
     ("K4 bottleneck_chain", ("chain_wgmma", "chain_gemm")),
+    ("K4 bottleneck_chain_bwd", ("chain_bwd_",)),
     ("library conv/gemm", ("cudnn", "cutlass", "xmma", "gemm", "gemv",
                            "convolve", "wgrad", "dgrad", "fprop",
                            "nchwToNhwc", "nhwcToNchw", "cublas")),
@@ -43,6 +44,7 @@ PORT_KERNELS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("K2 roi_align_bwd", ("roi_align_contract_bwd_kernel",)),
     ("K3 vgg_stem", ("vgg_stem_bf16_kernel", "vgg_stem_f32_kernel")),
     ("K4 bottleneck_chain", ("chain_wgmma_kernel", "chain_gemm_f32_kernel")),
+    ("K4 bottleneck_chain_bwd", ("chain_bwd_",)),
 )
 
 Row = Tuple[str, int, float]     # (kernel name, launches, device ms)

@@ -1,0 +1,428 @@
+"""K4's backward in the port against the JAX package on the CPU.
+
+``bottleneck_chain_bwd_plain`` (the twin of the CUDA kernel
+``csrc/bottleneck_chain_bwd.cu``, and what CPU tensors take) against
+``jax.grad`` through the Pallas kernel in interpret mode (its custom vjp
+remats in uniform f32 on the inputs rounded to the forward's dtype), and
+against ``jax.vjp`` of ``chain_reference`` in f32 on maps too small for
+the Pallas kernel (H or W <= 3: every 3x3 tap meets the padding); against
+autograd through ``bottleneck_chain_plain``; each subset of ``needs``;
+the gradients of the conv kernels through the fold; and a torch model of
+what the kernel does differently from the twin (the packed weights of
+the data gradients, the 3x3's transpose as the forward's gather over the
+taps reversed, the weight and bias gradients as partial sums over splits
+of the pixel axis added in split order).
+
+Tolerances: rtol=atol=1e-4 against JAX (as the forward tests state it:
+f32 sums in another order, and the relu gates of one linearisation point
+on both sides); 1e-5 of each gradient's norm between the port's own f32
+computations.
+"""
+
+import itertools
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scda_tpu.ops.pallas import bottleneck_kernel as jbk
+from scda_tpu_torch.ops.kernels import bottleneck_kernel as bk
+from scda_tpu_torch.utils import profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+NAMES = bk.GRAD_NAMES
+
+
+def _weights(rng, n, c, f, scale=0.08):
+    return [rng.randn(n, c, f).astype(np.float32) * scale,
+            rng.randn(n, 1, f).astype(np.float32) * 0.1,
+            rng.randn(n, 9, f, f).astype(np.float32) * scale,
+            rng.randn(n, 1, f).astype(np.float32) * 0.1,
+            rng.randn(n, f, c).astype(np.float32) * scale,
+            rng.randn(n, 1, c).astype(np.float32) * 0.1]
+
+
+def _case(rng, b, h, w, c, f, n):
+    x = rng.randn(b, h, w, c).astype(np.float32) * 0.5
+    return x, _weights(rng, n, c, f), rng.randn(b, h, w, c).astype(np.float32)
+
+
+def _twin(x, ws, g, dtype, **kw):
+    tdt = getattr(torch, dtype)
+    return bk.bottleneck_chain_bwd_plain(
+        torch.from_numpy(x), *map(torch.from_numpy, ws),
+        torch.from_numpy(g).to(tdt), dtype=tdt, **kw)
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 4, 8), (2, 2, 16)])
+def test_twin_matches_jax_grad_through_pallas(rng, shape, dtype):
+    """All seven gradients against ``jax.grad`` through the Pallas chain
+    (interpret), whose custom vjp is the JAX backward this twin ports;
+    the cotangent is g rounded to the forward's dtype on both sides."""
+    b, h, w = shape
+    x, ws, g = _case(rng, b, h, w, 512, 128, 2)
+    jdt = getattr(jnp, dtype)
+
+    def loss(*args):
+        y = jbk.bottleneck_chain(*args, dtype=jdt, interpret=True)
+        return jnp.sum(y.astype(jnp.float32)
+                       * jnp.asarray(g).astype(jdt).astype(jnp.float32))
+
+    refs = jax.grad(loss, argnums=tuple(range(7)))(
+        jnp.asarray(x), *map(jnp.asarray, ws))
+    out = _twin(x, ws, g, dtype)
+    for name, t, ref in zip(NAMES, out, refs):
+        assert t.dtype == torch.float32 and t.shape == ref.shape
+        np.testing.assert_allclose(t.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,c,f,n", [
+    (1, 3, 2, 64, 16, 2), (2, 1, 3, 32, 8, 3), (1, 2, 2, 128, 32, 1),
+    (2, 3, 3, 64, 16, 2),
+])
+def test_twin_matches_jax_vjp_on_small_maps(rng, b, h, w, c, f, n, dtype):
+    """Maps of H or W <= 3, where every tap of the 3x3 reads the padding
+    for some pixel (the Pallas kernel does not take them): against the
+    body of JAX's custom vjp, ``jax.vjp`` of ``chain_reference`` in f32 on
+    the inputs rounded to ``dtype``."""
+    x, ws, g = _case(rng, b, h, w, c, f, n)
+    jdt = getattr(jnp, dtype)
+
+    def up(a):
+        return jnp.asarray(a).astype(jdt).astype(jnp.float32)
+
+    _, vjp = jax.vjp(lambda *a: jbk.chain_reference(*a, dtype=jnp.float32),
+                     up(x), *map(up, ws))
+    refs = vjp(up(g))
+    out = _twin(x, ws, g, dtype)
+    for name, t, ref in zip(NAMES, out, refs):
+        np.testing.assert_allclose(t.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("b,h,w,c,f,n", [
+    (1, 5, 7, 64, 16, 3), (2, 3, 1, 32, 8, 2), (1, 1, 1, 64, 16, 1),
+])
+def test_twin_matches_autograd_through_the_forward_twin(rng, b, h, w, c, f,
+                                                        n):
+    """The explicit backward equals autograd through
+    ``bottleneck_chain_plain`` in f32: 1e-5 of each gradient's norm."""
+    x, ws, g = _case(rng, b, h, w, c, f, n)
+    ins = [torch.from_numpy(a).requires_grad_() for a in (x, *ws)]
+    y = bk.bottleneck_chain_plain(*ins, dtype=torch.float32)
+    refs = torch.autograd.grad(y, ins, torch.from_numpy(g))
+    out = _twin(x, ws, g, "float32")
+    for name, t, ref in zip(NAMES, out, refs):
+        assert _rel(t, ref) <= 1e-5, name
+
+
+@pytest.mark.parametrize("k", range(8))
+def test_twin_computes_the_gradients_asked_for(rng, k):
+    """Every subset of ``needs`` of size k: the skipped gradients are
+    ``None``, the others equal to the full call's."""
+    x, ws, g = _case(rng, 1, 3, 4, 32, 8, 2)
+    full = _twin(x, ws, g, "float32")
+    for subset in itertools.combinations(range(7), k):
+        needs = tuple(i in subset for i in range(7))
+        out = _twin(x, ws, g, "float32", needs=needs)
+        for i, (t, ref) in enumerate(zip(out, full)):
+            if needs[i]:
+                assert torch.equal(t, ref), (needs, NAMES[i])
+            else:
+                assert t is None, (needs, NAMES[i])
+
+
+def _bn(rng, ch):
+    return {"scale": (1.0 + 0.1 * rng.randn(ch)).astype(np.float32),
+            "bias": (0.1 * rng.randn(ch)).astype(np.float32),
+            "mean": (0.1 * rng.randn(ch)).astype(np.float32),
+            "var": (1.0 + 0.1 * rng.rand(ch)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fold_conv_gradients_match_jax(rng, dtype):
+    """conv kernels -> fold -> chain -> loss: each block's three conv
+    kernels' gradients (autograd through the port's fold, then the
+    chain's backward, the twin on the CPU) equal JAX's through
+    ``fold_bottleneck_params`` and the Pallas chain (interpret),
+    rtol=atol=1e-4.  The BatchNorm buffers stay frozen."""
+    from scda_tpu_torch.models.backbones.resnet import Bottleneck
+
+    c, f, n = 512, 128, 2
+    trees, mods = [], []
+    for _ in range(n):
+        tree = {f"conv{i}": {"kernel": rng.randn(*k).astype(np.float32) * 0.05}
+                for i, k in ((1, (1, 1, c, f)), (2, (3, 3, f, f)),
+                             (3, (1, 1, f, c)))}
+        tree.update({f"bn{i}": _bn(rng, ch)
+                     for i, ch in ((1, f), (2, f), (3, c))})
+        mod = Bottleneck(c, f, dtype=torch.float32)
+        with torch.no_grad():
+            for i in (1, 2, 3):
+                k = torch.from_numpy(tree[f"conv{i}"]["kernel"])
+                getattr(mod, f"conv{i}").weight.copy_(k.permute(3, 2, 0, 1))
+                bn, p = getattr(mod, f"bn{i}"), tree[f"bn{i}"]
+                for ours, theirs in (("weight", "scale"), ("bias", "bias"),
+                                     ("running_mean", "mean"),
+                                     ("running_var", "var")):
+                    getattr(bn, ours).copy_(torch.from_numpy(p[theirs]))
+        trees.append(tree)
+        mods.append(mod)
+    x = rng.randn(1, 4, 8, c).astype(np.float32) * 0.5
+    g = rng.randn(1, 4, 8, c).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def loss(kernels):
+        ts = [{**t, **{f"conv{i}": {"kernel": k[i - 1]} for i in (1, 2, 3)}}
+              for t, k in zip(trees, kernels)]
+        ts = [{k: {kk: jnp.asarray(vv) for kk, vv in v.items()}
+               for k, v in t.items()} for t in ts]
+        y = jbk.bottleneck_chain(jnp.asarray(x).astype(jdt),
+                                 *jbk.fold_bottleneck_params(ts), dtype=jdt,
+                                 interpret=True)
+        return jnp.sum(y.astype(jnp.float32)
+                       * jnp.asarray(g).astype(jdt).astype(jnp.float32))
+
+    refs = jax.grad(loss)([[jnp.asarray(t[f"conv{i}"]["kernel"])
+                            for i in (1, 2, 3)] for t in trees])
+    for m in mods:
+        for name, p in m.named_parameters():
+            p.requires_grad_(name.startswith("conv"))
+    y = bk.bottleneck_chain(torch.from_numpy(x).to(tdt),
+                            *bk.fold_bottleneck_params(mods), dtype=tdt)
+    y.backward(torch.from_numpy(g).to(tdt))
+    for m, ref in zip(mods, refs):
+        for i in (1, 2, 3):
+            grad = getattr(m, f"conv{i}").weight.grad.permute(2, 3, 1, 0)
+            np.testing.assert_allclose(grad.numpy(), np.asarray(ref[i - 1]),
+                                       rtol=1e-4, atol=1e-4)
+
+
+# ---- what the kernel does differently -----------------------------------
+
+def _splits(a, b, chunk):
+    """A^T B over the rows as the kernel sums it: one partial a split of
+    ``chunk`` rows, the partials added in split order."""
+    parts = [a[s:s + chunk].T @ b[s:s + chunk]
+             for s in range(0, a.shape[0], chunk)]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _kernel_model(x, ws, g, dtype):
+    """A torch model of ``scda_bottleneck_chain_bwd_f32`` on the operands
+    the wrapper packs (``chain_bwd_operands``): the data gradients against
+    w3t, w1t and w2r as (K, N) products, the 3x3's transpose as the
+    forward's gather (taps in order, shift (dy, dx)) of dy2 against w2r,
+    the weight gradients through :func:`_splits` with ``wgrad_chunk``'s
+    splits, the biases' by ``BIAS_CHUNK`` rows.  The remat is the twin's."""
+    xr, w1, b1, w2, b2, w3, b3, w1t, w2r, w3t = bk.chain_bwd_operands(
+        x, ws, dtype)
+    b, h, w, c = x.shape
+    n, _, f = w1.shape
+    m = b * h * w
+    c13 = bk.wgrad_chunk(m, (c // 64) * (f // 64))
+    c2 = bk.wgrad_chunk(m, 9 * (f // 64) ** 2)
+    xs, y1s, y2s = bk.chain_remat_plain(xr, w1, b1, w2, b2, w3, b3)
+
+    def flat(t):
+        return t.reshape(m, -1)
+
+    def gather(t):     # (B, H, W, K) -> (M, 9K), the implicit GEMM's rows
+        return flat(torch.cat([bk._shift(t, dy, dx) for dy, dx in bk.TAPS],
+                              -1))
+
+    def colsum(t):
+        return _splits(torch.ones(m, 1), flat(t), bk.BIAS_CHUNK)
+
+    def masked(v, y):
+        return torch.where(flat(y) > 0, v, torch.zeros(()))
+
+    out = [[None] * n for _ in range(6)]
+    g3 = masked(flat(g.float()), xs[n])
+    for i in reversed(range(n)):
+        out[4][i] = _splits(flat(y2s[i]), g3, c13)
+        out[5][i] = colsum(g3)
+        dy2 = masked(g3 @ w3t[i], y2s[i])
+        out[2][i] = torch.stack([
+            _splits(flat(bk._shift(y1s[i], dy, dx)), dy2, c2)
+            for dy, dx in bk.TAPS])
+        out[3][i] = colsum(dy2)
+        dy1 = masked(gather(dy2.reshape(b, h, w, f))
+                     @ w2r[i].reshape(9 * f, f), y1s[i])
+        out[0][i] = _splits(flat(xs[i]), dy1, c13)
+        out[1][i] = colsum(dy1)
+        g3 = dy1 @ w1t[i] + g3
+        if i:
+            g3 = masked(g3, xs[i])
+    return [g3.reshape(x.shape)] + [torch.stack(t) for t in out]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,c,f,n", [
+    (1, 16, 40, 64, 64, 2),      # 640 pixels: 2 splits, 3 bias splits
+    (2, 9, 30, 128, 64, 1),      # 540 pixels, wider C
+])
+def test_kernel_model_matches_the_twin(rng, b, h, w, c, f, n, dtype):
+    """The kernel's packing and split sums compute the twin's function:
+    1e-5 of each gradient's norm (only f32 summation order differs)."""
+    x, ws, g = _case(rng, b, h, w, c, f, n)
+    m = b * h * w
+    assert bk.wgrad_chunk(m, (c // 64) * (f // 64)) < m   # several splits
+    tdt = getattr(torch, dtype)
+    args = [torch.from_numpy(a) for a in (x, *ws)]
+    gt = torch.from_numpy(g).to(tdt)
+    model = _kernel_model(args[0], args[1:], gt, tdt)
+    twin = bk.bottleneck_chain_bwd_plain(*args, gt, dtype=tdt)
+    for name, a, ref in zip(NAMES, model, twin):
+        assert a.shape == ref.shape
+        assert _rel(a, ref) <= 1e-5, name
+
+
+@pytest.mark.parametrize("m,c,f", [
+    (64 * 128, 512, 128), (32 * 64, 1024, 256),              # bs 1
+    (8 * 64 * 128, 512, 128), (8 * 32 * 64, 1024, 256),      # bs 8
+    (128 * 256, 256, 64), (96, 256, 64),
+])
+def test_wgrad_splits_cover_the_pixels(m, c, f):
+    """Each weight gradient's splits: a multiple of 16 pixels each (the
+    kernel's slice), together exactly covering the pixels with none
+    empty, at least WGRAD_MIN_ROWS pixels each where there is more than
+    one, and as many as give the card WGRAD_BLOCKS tiles (fewer by the
+    rounding of a split up to 16 pixels)."""
+    for tiles in ((c // 64) * (f // 64), 9 * (f // 64) ** 2):
+        chunk = bk.wgrad_chunk(m, tiles)
+        splits = -(-m // chunk)
+        assert chunk % 16 == 0 and (splits - 1) * chunk < m <= splits * chunk
+        assert splits == 1 or chunk >= bk.WGRAD_MIN_ROWS
+        target = max(1, min(-(-bk.WGRAD_BLOCKS // tiles),
+                            m // bk.WGRAD_MIN_ROWS))
+        assert 0.9 * target <= splits <= target
+
+
+def test_wgrad_splits_at_layer3():
+    """ResNet-101's layer3 at 512x1024, bs 1: 2048 pixels; 64 tiles of
+    dW1 and dW3 in 8 splits of 256, 144 of dW2 in 4 of 512."""
+    assert bk.wgrad_chunk(2048, 64) == 256
+    assert bk.wgrad_chunk(2048, 144) == 512
+
+
+# ---- the wrapper and the autograd.Function on the CPU -------------------
+
+def test_wrapper_on_cpu_is_the_twin(rng):
+    x, ws, g = _case(rng, 1, 3, 5, 64, 16, 2)
+    args = [torch.from_numpy(a) for a in (x, *ws)]
+    before = bk.bottleneck_chain_bwd.launches
+    for dt in (torch.float32, torch.bfloat16):
+        out = bk.bottleneck_chain_bwd(*args, torch.from_numpy(g), dtype=dt)
+        ref = bk.bottleneck_chain_bwd_plain(*args, torch.from_numpy(g),
+                                            dtype=dt)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert bk.bottleneck_chain_bwd.launches == before
+
+
+def test_wrapper_rejects_bad_inputs(rng):
+    x, ws, g = _case(rng, 1, 3, 5, 64, 16, 2)
+    args = [torch.from_numpy(a) for a in (x, *ws)]
+    g = torch.from_numpy(g)
+    with pytest.raises(ValueError):
+        bk.bottleneck_chain_bwd(*args, g[:, :2])
+    with pytest.raises(ValueError):
+        bk.bottleneck_chain_bwd(*args, g, needs=(True,) * 8)
+    with pytest.raises(ValueError):
+        bk.bottleneck_chain_bwd(args[0], args[1][:, :8], *args[2:], g)
+    with pytest.raises(TypeError):
+        bk.bottleneck_chain_bwd(*args, g, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        bk.bottleneck_chain_bwd(*args, g.long())
+    with pytest.raises(RuntimeError, match="grad"):
+        bk.bottleneck_chain_bwd(*args, g.clone().requires_grad_())
+    with torch.no_grad():
+        bk.bottleneck_chain_bwd(*args, g.clone().requires_grad_())
+
+
+def test_autograd_asks_for_the_gradients_that_need_it(rng, monkeypatch):
+    """The autograd.Function's backward calls ``bottleneck_chain_bwd``
+    once with ``needs`` set from what requires grad (here w1, w2, w3, as
+    in the model, whose folded biases come from frozen buffers), and
+    casts each gradient to its input's dtype."""
+    x, ws, g = _case(rng, 1, 3, 4, 64, 16, 2)
+    seen = []
+    real = bk.bottleneck_chain_bwd
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs["needs"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(bk, "bottleneck_chain_bwd", spy)
+    ins = [torch.from_numpy(x).bfloat16()] + [
+        torch.from_numpy(w).requires_grad_(i % 2 == 0)
+        for i, w in enumerate(ws)]
+    y = bk.bottleneck_chain(*ins, dtype=torch.bfloat16)
+    y.backward(torch.from_numpy(g).bfloat16())
+    assert seen == [(False, True, False, True, False, True, False)]
+    ref = bk.bottleneck_chain_bwd_plain(*ins, torch.from_numpy(g).bfloat16(),
+                                        dtype=torch.bfloat16)
+    for i, t in enumerate(ins[1:]):
+        if t.requires_grad:
+            assert t.grad.dtype == torch.float32
+            assert torch.equal(t.grad, ref[i + 1])
+        else:
+            assert t.grad is None
+
+
+def test_profile_names_the_backward_kernels():
+    """The profiler's summary counts the backward's launches as K4's
+    backward, not as a library GEMM (their names hold ``gemm``)."""
+    rows = [("void (anonymous namespace)::chain_bwd_gemm_kernel<true>(float "
+             "const*)", 4, 1.0),
+            ("void (anonymous namespace)::chain_bwd_wgrad_kernel<false>("
+             "float const*)", 2, 0.5),
+            ("(anonymous namespace)::chain_bwd_sum_splits_kernel(float "
+             "const*)", 2, 0.1),
+            ("void (anonymous namespace)::chain_gemm_f32_kernel<1>(float "
+             "const*)", 2, 0.2),
+            ("sm90_xmma_gemm_f32f32", 2, 0.2)]
+    s = profile.summarize(rows, 2, 2.0)
+    assert s["share_by_kind"] == pytest.approx(
+        {"K4 bottleneck_chain_bwd": 0.8, "K4 bottleneck_chain": 0.1,
+         "library conv/gemm": 0.1})
+    assert s["port_kernels"]["K4 bottleneck_chain_bwd"] == {
+        "launches_per_unit": 4, "ms_per_unit": pytest.approx(0.8)}
+
+
+def test_chip_smoke_bounds_the_backward_in_f32():
+    """``chip_smoke.py``'s bound for K4's backward: the remat, the data
+    and the weight gradients (three times the forward's operations; two
+    when no weight is trained) at the f32 peak, the bf16 figure of twice
+    the forward's operations beside it; layer3 at bs 1 needs about 4.5
+    ms."""
+    import chip_smoke
+
+    x = torch.zeros(1, 32, 64, 1024, dtype=torch.bfloat16)
+    w1 = torch.zeros(22, 1024, 256)
+    fwd = chip_smoke.chain_bound(x, w1)
+    out = chip_smoke.chain_bwd_bound(x, w1)
+    frozen = chip_smoke.chain_bwd_bound(x, w1, weights=False)
+    assert out["flops"] == 3 * fwd["flops"]
+    assert frozen["flops"] == 2 * fwd["flops"]
+    assert out["bound_by"] == "operations"
+    assert out["bound_ms"] == pytest.approx(
+        3 * fwd["flops"] / chip_smoke.PEAK_F32_FLOPS * 1e3)
+    assert 4.4 < out["bound_ms"] < 4.6
+    assert out["bound_bf16_ms"] == pytest.approx(
+        2 * fwd["flops"] / chip_smoke.PEAK_BF16_FLOPS * 1e3)

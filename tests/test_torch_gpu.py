@@ -480,23 +480,154 @@ def test_roi_align_autograd_on_card(cuda, sampling_ratio):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bottleneck_chain_autograd_on_card(cuda, dtype):
-    """K4 forward, twin remat backward: every input's gradient against
-    the twin's own under autograd (f32 on the inputs rounded to
-    ``dtype``), at rtol=atol=1e-4."""
+    """K4 forward, K4 backward kernel: every input's gradient against the
+    twin's own under autograd (f32 on the inputs rounded to ``dtype``),
+    at rtol=atol=1e-4; the backward kernel launched once."""
     g = torch.Generator().manual_seed(5)
     x = torch.relu(torch.randn((1, 5, 7, 256), generator=g)).to(cuda)
     ws = _chain_weights(g, 2, 256, 64, cuda)
     cot = torch.randn((1, 5, 7, 256), generator=g).to(cuda, dtype)
     ins = [t.clone().requires_grad_() for t in (x, *ws)]
     before = bottleneck_kernel.bottleneck_chain.launches
+    before_bwd = bottleneck_kernel.bottleneck_chain_bwd.launches
     bottleneck_kernel.bottleneck_chain(*ins, dtype=dtype).backward(cot)
     assert bottleneck_kernel.bottleneck_chain.launches == before + 1
+    assert bottleneck_kernel.bottleneck_chain_bwd.launches == before_bwd + 1
     refs = [t.to(dtype).float().requires_grad_() for t in (x, *ws)]
     bottleneck_kernel.bottleneck_chain_plain(
         *refs, dtype=torch.float32).backward(cot.float())
     for t, ref in zip(ins, refs):
         assert t.grad.abs().max() > 0
         torch.testing.assert_close(t.grad, ref.grad, rtol=1e-4, atol=1e-4)
+
+
+def _chain_bwd_gap(args, cot, dtype, needs=bottleneck_kernel.ALL_GRADS):
+    """K4's backward kernel and its twin linearised at the forward
+    kernel's activations: (kernel grads, per-gradient ||k - p|| / ||p||)."""
+    bk = bottleneck_kernel
+    out = bk.bottleneck_chain_bwd(*args, cot, dtype=dtype, needs=needs)
+    rounded = bk.chain_bwd_operands(args[0], args[1:], dtype)[:7]
+    ref = bk.bottleneck_chain_bwd_plain(*rounded, cot, dtype=torch.float32,
+                                        needs=needs,
+                                        remat=bk.chain_remat_kernel(*rounded))
+    gaps = [None if o is None else float((o - r).norm() / r.norm())
+            for o, r in zip(out, ref)]
+    return out, gaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,f,n", [
+    (1, 3, 2, 64, 2), (2, 7, 9, 64, 3), (1, 5, 11, 128, 1),
+    (2, 1, 1, 64, 1), (1, 33, 17, 128, 3),
+])
+def test_bottleneck_chain_bwd_kernel_matches_twin(cuda, dtype, b, h, w, f,
+                                                  n):
+    """Ragged maps (M not a multiple of the 64-row tile; every 3x3 tap at
+    the padding where H or W <= 3): all seven gradients against the twin
+    linearised at the f32 forward kernel's activations (the backward's
+    remat sums in the same order, so both see the same relu gates),
+    ||k - p|| <= 1e-4 ||p||."""
+    c = 4 * f
+    g = torch.Generator().manual_seed(h * w + f + n)
+    x = torch.relu(torch.randn((b, h, w, c), generator=g)).to(cuda)
+    ws = _chain_weights(g, n, c, f, cuda)
+    cot = torch.randn((b, h, w, c), generator=g).to(cuda, dtype)
+    out, gaps = _chain_bwd_gap((x, *ws), cot, dtype)
+    assert all(o.dtype == torch.float32 and o.shape == t.shape
+               for o, t in zip(out, (x, *ws)))
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert max(gaps) <= 1e-4, gaps
+
+
+@pytest.mark.parametrize("b,h,w,f,n,damp", [
+    (1, 64, 128, 128, 3, 0.3), (1, 32, 64, 256, 22, 0.1),
+    (8, 64, 128, 128, 3, 0.3), (8, 32, 64, 256, 22, 0.1),
+])
+def test_bottleneck_chain_bwd_kernel_at_the_path_shapes(cuda, b, h, w, f, n,
+                                                        damp):
+    """layer2 and layer3 of ResNet-101 at 512x1024, bs 1 and 8, bf16
+    forward, the gradients the model asks for (x, w1, w2, w3): within
+    1e-4 of each norm of the twin at the forward kernel's activations,
+    and two launches bit-equal."""
+    c = 4 * f
+    g = torch.Generator().manual_seed(b + f + n)
+    x = torch.relu(torch.randn((b, h, w, c), generator=g)).to(
+        cuda, torch.bfloat16)
+    ws = _chain_weights(g, n, c, f, cuda, damp)
+    cot = torch.randn((b, h, w, c), generator=g).to(cuda, torch.bfloat16)
+    needs = (True, True, False, True, False, True, False)
+    out, gaps = _chain_bwd_gap((x, *ws), cot, torch.bfloat16, needs)
+    assert [o is None for o in out] == [not v for v in needs]
+    assert max(v for v in gaps if v is not None) <= 1e-4, gaps
+    again = bottleneck_kernel.bottleneck_chain_bwd(
+        x, *ws, cot, dtype=torch.bfloat16, needs=needs)
+    assert all(torch.equal(a, o) for a, o in zip(again, out) if o is not None)
+
+
+def test_bottleneck_chain_bwd_kernel_repeats_bit_for_bit(cuda):
+    """Two launches on the same inputs, all seven gradients, split
+    partial sums included: the same bits."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.relu(torch.randn((2, 9, 13, 256), generator=g)).to(cuda)
+    ws = _chain_weights(g, 3, 256, 64, cuda)
+    cot = torch.randn((2, 9, 13, 256), generator=g).to(cuda)
+    first = bottleneck_kernel.bottleneck_chain_bwd(x, *ws, cot,
+                                                   dtype=torch.float32)
+    second = bottleneck_kernel.bottleneck_chain_bwd(x, *ws, cot,
+                                                    dtype=torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_bottleneck_chain_backward_on_card_is_the_kernel(cuda, monkeypatch):
+    """Under autograd on CUDA the chain's backward launches the kernel
+    once and never runs the twin: the twin's backward and remat raise."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the twin ran on CUDA tensors")
+
+    monkeypatch.setattr(bottleneck_kernel, "bottleneck_chain_bwd_plain",
+                        refuse)
+    monkeypatch.setattr(bottleneck_kernel, "chain_remat_plain", refuse)
+    monkeypatch.setattr(bottleneck_kernel, "bottleneck_chain_plain", refuse)
+    g = torch.Generator().manual_seed(7)
+    x = torch.relu(torch.randn((1, 6, 5, 256), generator=g)).to(cuda)
+    ws = _chain_weights(g, 2, 256, 64, cuda)
+    ins = [x.requires_grad_()] + [w.requires_grad_() for w in ws]
+    before = bottleneck_kernel.bottleneck_chain_bwd.launches
+    bottleneck_kernel.bottleneck_chain(*ins, dtype=torch.bfloat16).sum(
+        ).backward()
+    assert bottleneck_kernel.bottleneck_chain_bwd.launches == before + 1
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in ins)
+
+
+def test_bottleneck_chain_bwd_rejects_bad_inputs(cuda):
+    """Bad shapes, devices and dtypes raise before any launch."""
+    bk = bottleneck_kernel
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 4, 4, 256), generator=g).to(cuda)
+    ws = _chain_weights(g, 1, 256, 64, cuda)
+    cot = torch.randn((1, 4, 4, 256), generator=g).to(cuda)
+    before = bk.bottleneck_chain_bwd.launches
+    with pytest.raises(ValueError):     # g not shaped as x
+        bk.bottleneck_chain_bwd(x, *ws, cot[:, :2])
+    with pytest.raises(ValueError):     # g on another device
+        bk.bottleneck_chain_bwd(x, *ws, cot.cpu())
+    with pytest.raises(ValueError):     # weights on another device
+        bk.bottleneck_chain_bwd(x, ws[0].cpu(), *ws[1:], cot)
+    with pytest.raises(ValueError):     # w2 of the wrong width
+        bk.bottleneck_chain_bwd(x, ws[0], ws[1], ws[2][:, :, :32], *ws[3:],
+                                cot)
+    with pytest.raises(TypeError):
+        bk.bottleneck_chain_bwd(x, *ws, cot, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        bk.bottleneck_chain_bwd(x, *ws, cot.long())
+    with pytest.raises(ValueError):     # needs: seven bools
+        bk.bottleneck_chain_bwd(x, *ws, cot, needs=(True,) * 6)
+    ws96 = _chain_weights(g, 1, 96, 24, cuda)
+    with pytest.raises(ValueError):     # C and F not multiples of 64
+        bk.bottleneck_chain_bwd(torch.zeros(1, 4, 4, 96, device=cuda), *ws96,
+                                torch.zeros(1, 4, 4, 96, device=cuda))
+    assert bk.bottleneck_chain_bwd.launches == before
 
 
 def _refusal_cases(cuda):
@@ -515,12 +646,14 @@ def _refusal_cases(cuda):
             z(1, 2, 3, 4), z(1, 2, 3, 6), req(z(1, 2, 3, 3, 8)), 4, 6),
         "bottleneck_chain_fwd": lambda: bottleneck_kernel.bottleneck_chain_fwd(
             req(z(1, 2, 3, 64)), *ws),
+        "bottleneck_chain_bwd": lambda: bottleneck_kernel.bottleneck_chain_bwd(
+            z(1, 2, 3, 64), *ws, req(z(1, 2, 3, 64))),
     }
 
 
 @pytest.mark.parametrize("wrapper", [
     "nms_sorted", "vgg_stem_fused", "roi_align_contract_fwd",
-    "roi_align_contract_bwd", "bottleneck_chain_fwd",
+    "roi_align_contract_bwd", "bottleneck_chain_fwd", "bottleneck_chain_bwd",
 ])
 def test_wrapper_refuses_to_drop_a_gradient_on_card(cuda, wrapper):
     """A ctypes wrapper called with grad mode on and an input that

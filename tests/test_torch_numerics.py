@@ -95,7 +95,8 @@ def _main_calls(path):
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "bench_torch.py",
-                                  "scda_tpu_torch/utils/kernel_probe.py"])
+                                  "scda_tpu_torch/utils/kernel_probe.py",
+                                  "res101_steps.py"])
 def test_card_scripts_call_the_helper(path):
     """Checked on the source: their card paths need a card.  Each
     ``main`` calls the helper once, and no TF32 or determinism flag is

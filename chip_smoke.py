@@ -203,6 +203,7 @@ RES_SCDA_STEPS = 20
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): the yardstick of every ``bound_ms`` below.
 PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 operands
+PEAK_TF32_FLOPS = 495e12     # tensor cores, TF32 operands
 PEAK_F32_FLOPS = 67e12       # CUDA cores, f32 operands
 PEAK_BYTES_PER_S = 3.35e12   # device memory
 NO_LIBRARY = ("no single PyTorch call computes greedy NMS (torchvision's "
@@ -212,6 +213,10 @@ NO_CHAIN_BWD_LIBRARY = ("no single PyTorch call computes a bottleneck "
                         "kernel replaced (the twin under autograd)")
 # K4's backward against its twin linearised at the same activations.
 CHAIN_BWD_TOL = 1e-4
+# K4's backward's remat against the f32 forward kernel's chain: max |d|
+# over each map's largest magnitude, at most the larger of this floor and
+# PERTURB_FACTOR x the twin's own remat's gap from the same chain.
+CHAIN_REMAT_FLOOR = 1e-5
 
 
 _T0 = time.perf_counter()
@@ -835,16 +840,21 @@ class Port:
     def check_chain_bwd(self, args, dtype, label, seed):
         """K4's backward on one stage's inputs (the forward's ``dtype``)
         and a seeded N(0, 1) cotangent, all seven gradients:
-          * against its twin linearised at the f32 forward kernel's
-            activations (``chain_remat_kernel``): the backward's remat
-            sums in the forward kernel's order, so both see the same
+          * against its twin linearised at the kernel's own remat (the
+            views ``chain_bwd_launcher`` hands back): both see the same
             relu gates; ||k - p|| <= ``CHAIN_BWD_TOL`` ||p|| per gradient;
-          * against the twin with its own remat (cuBLAS sums in another
-            order, so gates at a pre-activation within rounding of 0 may
-            flip, each moving a gradient by about 1 / sqrt(the map's
-            elements) of its norm): within max(``CHAIN_BWD_TOL``,
-            ``PERTURB_FACTOR`` x the gap that 1 + ``PERTURB`` N(0, 1)
-            noise on the inputs and weights makes in the twin);
+          * the remat against the f32 forward kernel's chain
+            (``chain_remat_kernel``): per map, max |d| over the map's
+            largest magnitude at most max(``CHAIN_REMAT_FLOOR``,
+            ``PERTURB_FACTOR`` x the gap of the twin's own cuBLAS remat
+            from the same chain); the split-TF32 remat is not that chain
+            bit for bit, so the relu gates that differ are counted;
+          * against the twin with its own remat (gates at a
+            pre-activation within rounding of 0 may flip, each moving a
+            gradient by about 1 / sqrt(the map's elements) of its norm):
+            within max(``CHAIN_BWD_TOL``, ``PERTURB_FACTOR`` x the gap
+            that 1 + ``PERTURB`` N(0, 1) noise on the inputs and weights
+            makes in the twin);
           * two launches bit-equal."""
         torch = self.torch
         bk = self.bk
@@ -852,12 +862,21 @@ class Port:
         g = torch.randn(x.shape, device=x.device, generator=torch.Generator(
             x.device).manual_seed(100 + seed)).to(dtype)
         rounded = bk.chain_bwd_operands(x, args[1:], dtype)[:7]
-        k = bk.bottleneck_chain_bwd(*args, g, dtype=dtype)
-        again = bk.bottleneck_chain_bwd(*args, g, dtype=dtype)
+        launch = bk.chain_bwd_launcher(*args, g, dtype=dtype)
+        k = [t.clone() for t in launch()]
+        remat = [[t.clone() for t in part] for part in launch.remat]
+        again = launch()
         at = bk.bottleneck_chain_bwd_plain(*rounded, g, dtype=torch.float32,
-                                           remat=bk.chain_remat_kernel(
-                                               *rounded))
-        own = bk.bottleneck_chain_bwd_plain(*rounded, g, dtype=torch.float32)
+                                           remat=remat)
+        own_remat = bk.chain_remat_plain(*rounded)
+        own = bk.bottleneck_chain_bwd_plain(*rounded, g, dtype=torch.float32,
+                                            remat=own_remat)
+        fwd_remat = bk.chain_remat_kernel(*rounded)
+        gaps, flips = bk.remat_gaps(remat, fwd_remat)
+        twin_gaps, twin_flips = bk.remat_gaps(own_remat, fwd_remat)
+        remat_bound = [max(CHAIN_REMAT_FLOOR, PERTURB_FACTOR * v)
+                       for v in twin_gaps]
+        del own_remat, fwd_remat
 
         def rel(a, b):
             return [float((u - v).norm() / v.norm()) for u, v in zip(a, b)]
@@ -872,6 +891,7 @@ class Port:
         bound_own = [max(CHAIN_BWD_TOL, PERTURB_FACTOR * v) for v in pert]
         equal = all(torch.equal(a, b) for a, b in zip(k, again))
         finite = all(bool(torch.isfinite(t).all()) for t in k)
+        worst = max(range(len(gaps)), key=lambda i: gaps[i] / remat_bound[i])
         out = {"stage": label, "x": list(x.shape), "F": int(args[1].shape[2]),
                "blocks": int(args[1].shape[0]), "dtype": str(dtype),
                "max_abs_err": max(float((a - b).abs().max())
@@ -879,13 +899,26 @@ class Port:
                "max_rel_err": max(rel_at),
                "rel_err": dict(zip(bk.GRAD_NAMES, rel_at)),
                "tolerance": f"||k - p|| <= {CHAIN_BWD_TOL} ||p||, p the twin "
-                            f"at the forward kernel's activations",
+                            f"at the kernel's own remat",
+               "remat_gap": max(gaps), "remat_gap_worst_map": gaps[worst],
+               "remat_bound_worst_map": remat_bound[worst],
+               "twin_remat_gap": max(twin_gaps),
+               "remat_gates_differ": flips,
+               "twin_remat_gates_differ": twin_flips,
+               "remat_tolerance": f"per map max |d| / max |ref| <= max("
+                                  f"{CHAIN_REMAT_FLOOR}, {PERTURB_FACTOR} x "
+                                  f"the twin's own remat's), ref the f32 "
+                                  f"forward kernel's chain",
                "rel_err_own_remat": dict(zip(bk.GRAD_NAMES, rel_own)),
                "bound_own_remat": dict(zip(bk.GRAD_NAMES, bound_own)),
                "two_launches_bit_equal": equal, "finite": finite}
         require(finite and max(rel_at) <= CHAIN_BWD_TOL,
-                f"K4 backward {label}: off its twin at the kernel's "
-                f"activations by {out['rel_err']} (bound {CHAIN_BWD_TOL})")
+                f"K4 backward {label}: off its twin at the kernel's own "
+                f"remat by {out['rel_err']} (bound {CHAIN_BWD_TOL})")
+        require(all(a <= b for a, b in zip(gaps, remat_bound)),
+                f"K4 backward {label}: remat off the f32 forward chain by "
+                f"{gaps[worst]} on map {worst} (bound {remat_bound[worst]}; "
+                f"maps x_0..x_N, y1s, y2s)")
         require(all(a <= b for a, b in zip(rel_own, bound_own)),
                 f"K4 backward {label}: off its twin's own remat by "
                 f"{out['rel_err_own_remat']}, bound {out['bound_own_remat']}")
@@ -2938,15 +2971,21 @@ def ab_protocol(port, root, name):
     return out, gates, launches
 
 
-def chain_bwd_bound(x, w1, weights=True):
+def chain_bwd_bound(x, w1, weights=True, dtype=None):
     """K4's backward as the JAX ``custom_vjp`` does it, in f32: the remat,
     the data gradients and (``weights``) the weight gradients, each the
     forward's operations, at the f32 peak; the stream and its cotangent
     in and x's gradient out (x's dtype), each block's f32 weights in and
-    (``weights``) their gradients out.  ``bound_bf16_ms``: twice the
-    forward's operations at the bf16 peak, with the bytes of the bf16
-    stream and weights: the gradients without a remat, what a bf16
-    backward that kept the forward's activations could reach."""
+    (``weights``) their gradients out.  ``bound_tc_ms``: the same bytes
+    and the split-TF32 passes the kernel runs at the TF32 peak, two a
+    data product when ``dtype`` (the forward's, x's by default) is
+    bfloat16 and three otherwise, three a weight gradient.
+    ``bound_bf16_ms``: twice the forward's operations at the bf16 peak,
+    with the bytes of the bf16 stream and weights: the gradients without
+    a remat, what a bf16 backward that kept the forward's activations
+    could reach."""
+    import torch
+
     fwd = chain_bound(x, w1)
     m, c = x.numel() // x.shape[-1], x.shape[-1]
     n, f = int(w1.shape[0]), int(w1.shape[2])
@@ -2954,6 +2993,11 @@ def chain_bwd_bound(x, w1, weights=True):
     out = roofline((3 if weights else 2) * fwd["flops"],
                    3 * m * c * x.element_size()
                    + (2 if weights else 1) * w_bytes, PEAK_F32_FLOPS)
+    passes = 2 if (dtype or x.dtype) == torch.bfloat16 else 3
+    out["tf32_passes"] = {"data": passes, "weights": 3 if weights else 0}
+    out["bound_tc_ms"] = roofline(
+        (2 * passes + (3 if weights else 0)) * fwd["flops"], out["bytes"],
+        PEAK_TF32_FLOPS)["bound_ms"]
     bf16_weights = fwd["bytes"] - 2 * m * c * 2
     out["bound_bf16_ms"] = roofline(2 * fwd["flops"],
                                     3 * m * c * 2 + 2 * bf16_weights,
@@ -2965,7 +3009,9 @@ def chain_bwd_checks(port, calls, path):
     """K4's backward on each recorded chain call that the path
     differentiates (layer2 and layer3; layer1 is frozen), against its
     twin (:meth:`Port.check_chain_bwd`), with times per stage: the kernel
-    with the path's gradients, its twin, and the remat it replaced (the
+    with the path's gradients through its wrapper (``ms``: packing,
+    workspace and its NaN fill included) and launched alone on packed
+    operands (``kernel_ms``), its twin, and the remat it replaced (the
     twin's forward re-run in f32 under autograd, then
     ``torch.autograd.grad``).  Returns the kernel's summary."""
     torch = port.torch
@@ -2995,18 +3041,23 @@ def chain_bwd_checks(port, calls, path):
                 port.bk.GRAD_NAMES, needs) if need],
             "ms": time_ms(torch, lambda: port.bk.bottleneck_chain_bwd(
                 *args, g, dtype=dt, needs=needs), 10),
+            "kernel_ms": time_ms(torch, port.bk.chain_bwd_launcher(
+                *args, g, dtype=dt, needs=needs), 10),
             "plain_ms": time_ms(torch, lambda: port.bk.
                                 bottleneck_chain_bwd_plain(
                                     *args, g, dtype=dt, needs=needs), 3),
             "remat_ms": time_ms(torch, remat, 3),
-            **chain_bwd_bound(args[0], args[1], weights=any(needs[1:]))})
+            **chain_bwd_bound(args[0], args[1], weights=any(needs[1:]),
+                              dtype=dt)})
     require(stages, f"{path}: no K4 call under autograd was recorded")
     summary = {
         "max_abs_err": max(st["max_abs_err"] for st in stages),
         "max_rel_err": max(st["max_rel_err"] for st in stages),
         **{key: sum(st[key] for st in stages)
-           for key in ("ms", "plain_ms", "remat_ms", "bound_ms",
-                       "bound_bf16_ms", "flops", "bytes")},
+           for key in ("ms", "kernel_ms", "plain_ms", "remat_ms", "bound_ms",
+                       "bound_tc_ms", "bound_bf16_ms", "flops", "bytes")},
+        "remat_gap": max(st["remat_gap"] for st in stages),
+        "remat_gates_differ": sum(st["remat_gates_differ"] for st in stages),
         "bound_by": max(stages, key=lambda st: st["bound_ms"])["bound_by"],
         "library_ms": None, "library_reason": NO_CHAIN_BWD_LIBRARY,
         "stages": stages}
@@ -3283,7 +3334,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **summaries[name],
-                        "kernel_ms": summaries[name]["ms"]})
+                        "kernel_ms": summaries[name].get(
+                            "kernel_ms", summaries[name]["ms"])})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

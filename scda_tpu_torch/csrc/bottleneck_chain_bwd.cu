@@ -9,15 +9,14 @@
 // scda_tpu/ops/pallas/bottleneck_kernel.py:bottleneck_chain (its `bwd`, a
 // jax.vjp of chain_reference in uniform f32 on the inputs rounded to the
 // forward's type): the wrapper rounds x and the weights the same way, and
-// everything here is f32 FMAs on the CUDA cores, with no rounding between
-// stages.  No TF32 and no bf16: the f32 gradient gates would not hold.
+// every product here runs on the tensor cores at f32-class accuracy.
 //
-// Design.  One C call does the whole backward on PyTorch's stream:
+// What it computes.  One C call does the whole backward on PyTorch's
+// stream:
 //   1. the remat: the chain's forward again in f32, keeping every block's
 //      input x_i, y1_i and y2_i (post-relu) and the output x_N in one
 //      workspace, (N * (C + 2F)) * B*H*W floats: 12.6 MB a block at
-//      ResNet-101's layer3 at 512x1024 and bs 1, 277 MB for its 22 blocks
-//      (the f32 activations that an autograd remat holds as well);
+//      ResNet-101's layer3 at 512x1024 and bs 1, 277 MB for its 22 blocks;
 //   2. g3 = g * [x_N > 0];
 //   3. for each block from the last to the first, with g3 the cotangent
 //      of the block's pre-relu output:
@@ -35,55 +34,94 @@
 //      skips one); the model never asks for the biases' (they are
 //      FrozenBatchNorm's).
 //
-// Two tiled kernels do all the products, each a 64 x 64 output tile per
-// 128-thread block, 16-deep slices of the reduction axis copied by
-// zero-filling 16-byte cp.async copies into a ring of four shared-memory
-// stages (three slices in flight while one is multiplied, one barrier a
-// slice), and an 8 x 4 register tile a thread read from shared memory as
-// float4s:
-//   - the data products (remat and dy2, dy1, dx) reduce over channels:
-//     A (pixels x K) is copied as rows along K, the 3x3 and its transpose
-//     gathering shifted pixels and zero-filling the padding, B is the
-//     packed weight (K x N); a thread reads its rows' A as float4s along
-//     K (12 reads for 128 FMAs); the epilogue adds a bias and / or a map,
-//     applies relu and / or a mask, and stores 16 bytes a thread.  Where
-//     64-row tiles give fewer than two blocks an SM (layer3 at bs 1 has
-//     2048 pixels), the tiles are 32 x 64 with a 4 x 4 register tile:
-//     twice the warps to hide latency, every output still summed in k
-//     order, so the remat stays the forward kernel's f32 chain bit for
-//     bit (its f32 path sums in the same order);
-//   - the weight gradients reduce over the B*H*W pixels (A^T B), both
-//     operands copied as rows along the pixels (three reads for 32 FMAs
-//     a pixel).  Their output has few tiles (16 to 144 at the ResNet-101
-//     stages), so the pixel axis is cut into splits of `chunk` rows
-//     (chosen by the wrapper: about four blocks an SM), each writing its
-//     partial sums to scratch, and a second kernel adds the partials in
-//     split order.  The bias sums go the same way by column.
-// Nothing is accumulated with atomics: every output element is written
-// once by one thread after sums in a fixed order, so two calls on the
-// same inputs give the same bits.
+// Numerics: split TF32.  A TF32 tensor-core product keeps 11 significant
+// bits of each operand.  Each f32 operand is split once, where it enters
+// shared memory or registers, into hi = cvt.rna.tf32(a) and lo =
+// cvt.rna.tf32(a - hi), which carry 22 of its 24 bits, and a product is
+// the sum of the passes
+//   - data products (remat, dy2, dy1, dx): lo(a) W + hi(a) W when the
+//     wrapper's dtype is bf16 (the weights are bf16 values, exact in
+//     TF32: two passes), lo(a) hi(W) + hi(a) lo(W) + hi(a) hi(W) under
+//     float32 (three);
+//   - weight gradients: three passes, both operands being f32 maps.
+// Every pass of one 32-deep slice accumulates into a fresh register tile
+// in the tensor cores, which is then added to the f32 sum with a plain
+// FADD: published tests of NVIDIA's tensor cores find their f32
+// accumulation rounds toward zero, and a chain of thousands of such
+// additions could bias the sums by about 1e-5; a slice adds at most 12.  The relative error of a product is
+// then about 2^-21, against the 1e-4 gates.  The remat is no longer the
+// f32 forward kernel's chain bit for bit: a relu gate whose
+// pre-activation lies within rounding of 0 may flip, so the checks
+// linearise the plain twin at this kernel's own remat (handed back to
+// callers that ask for it) and hold the remat itself to the forward
+// kernel's f32 chain.
+//
+// Design.
+//   - Data products: one warpgroup a block owns a 64 x BN output tile (BN
+//     = 128 where N allows, else 64) and walks its K range in 32-float
+//     slices, one 128-byte swizzled row per tile row, through a ring of
+//     three shared-memory stages filled by zero-filling 16-byte cp.async
+//     copies (the 3x3 and its transpose gather shifted pixels and
+//     zero-fill the padding, as the forward does).  The thread that copied
+//     a 16-byte chunk splits it in place (hi over the f32, lo into a
+//     second tile at the same offset), so no barrier separates the copy
+//     and the split; wgmma m64nBNk8 then reads hi and lo tiles through
+//     K-major 128-byte-swizzle descriptors.  Slice k + 1 is split while
+//     slice k's wgmmas run; two slices are in flight behind it.  Three
+//     stages of 32 KB (bf16) leave room for two blocks an SM.
+//   - Filling the card at bs 1: layer3 has 2048 pixels, so 64 x 128
+//     tiles over N = F = 256 give 64 blocks for 132 SMs.  A product with
+//     fewer blocks than SMs splits its K range (the wrapper's
+//     product_splits: the 3x3 into groups of taps, 1x1s into channel
+//     ranges); each split writes its tile's partial sums to scratch in
+//     register order, and the block that finishes last, found by a
+//     per-tile counter, adds the partials in split order and runs the
+//     epilogue.  The counter decides which block adds, never the order.
+//     Running a tile's splits as one thread-block cluster that adds them
+//     through distributed shared memory was measured too: 2-3 way splits
+//     gained about 2 us, but co-scheduling the 8-block clusters of the
+//     1x1 weight gradients cost 16 (45 against 29 us), 8.2 against 7.3
+//     ms at layer3 in all.
+//   - Weight gradients reduce over the pixels, and both operands are
+//     stored along the channels, while TF32 wgmma takes only K-major
+//     (here pixel-major) tiles.  A slice of 32 pixels x 64 channels of
+//     each operand is copied as it lies into a staging buffer; the split
+//     pass, which goes through registers anyway, reads four pixels of
+//     one channel (conflict-free along the channels) and writes them
+//     transposed as one 16-byte chunk of the swizzled hi tile and of the
+//     lo tile, while the previous slice's wgmmas run.  One warpgroup a
+//     64 x 64 output tile, two staging buffers and two sets of tiles (96
+//     KB, two blocks an SM); the pixel axis is cut into splits (the
+//     wrapper's wgrad_chunk), added in split order by the last block as
+//     above.  A first version on mma.sync.m16n8k8, fragments read from
+//     the staging tile and split in registers, took 118 us for layer3's
+//     dW2 and 38 us for its dW1 / dW3 at bs 1 against 99 and 29 us for
+//     this one (kernel_probe k4bwd, H100 80GB HBM3 at 700 W).
+//   - No atomics accumulate anything: every output element is written
+//     once by one thread after sums in a fixed order, so two calls on the
+//     same inputs give the same bits.
 //
 // What bounds it on the H100: arithmetic.  The remat, the data gradients
-// and the weight gradients each do the forward's operations, about 3 x
-// 100 GFLOP at layer3 at bs 1 (4.5 ms at the f32 peak of 67 TFLOP/s),
-// against 13 MB of the stream and its gradient in and out.  Measured on
-// an H100 80GB HBM3 at 700 W (utils/kernel_probe.py k4bwd, the gradients
-// the model asks for): 2.1-2.2 ms at layer2 and 12.3-12.7 ms at layer3 at
-// bs 1, 67.7-67.8 ms at layer3 at bs 8 (f32 bounds 0.61, 4.50 and 36),
-// against 25-35 ms at layer3 for the twin's remat under autograd that it
-// replaced.  At bs 1 it is latency that bounds it: layer3's 3x3 products
-// reach 24 TFLOP/s with 256 blocks of four warps, the same products at
-// bs 8 (1024 blocks) 40.
+// and the weight gradients each do the forward's operations, about 100
+// GFLOP each at layer3 at bs 1; in split TF32, 2 + 2 + 3 passes of them
+// at 495 TFLOP/s dense TF32 is 1.4 ms (4.5 ms at the f32 CUDA-core peak
+// of 67 TFLOP/s, where the f32 FMA kernel this replaces ran, 12.3-12.7
+// ms), against 13 MB of the stream and its gradient in and out.
+// Measured on an H100 80GB HBM3 at 700 W (utils/kernel_probe.py k4bwd,
+// the gradients the model asks for, launches alone): 1.14 ms at layer2
+// and 7.28 ms at layer3 at bs 1, 44.9 ms at layer3 at bs 8 (tensor-core
+// bounds 0.19, 1.42 and 11.4 ms).  What holds it back (k4bwd-phases,
+// layer3, bs 1): the weight gradients' copies, L2-bound at 64 x 64 tiles
+// (dW2 re-reads its operands 4 x 9 times: 151 MB, 60 us of its 101),
+// and each split product's launch and partial sums (11 us of a reduce
+// 1x1's 15 with every phase compiled out); cvt.rna.tf32 measured no
+// faster than the two integer operations used instead.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBN = 64;        // output tile columns
-constexpr int kBK = 16;        // reduction slice
-constexpr int kStages = 4;     // slices in the cp.async ring
-constexpr int kThreads = 128;  // 8 x 16 threads
-constexpr int kLd = 64 + 4;    // padded 64-wide shared row (16-byte rows)
-constexpr int kLdK = kBK + 4;  // padded kBK-wide shared row
+constexpr int kThreads = 128;  // one warpgroup
 
 // 16-byte global -> shared copy; with pred false it writes 16 zero bytes
 // and reads nothing.
@@ -102,66 +140,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Thread t of a block owns output rows tile_row(tm, i) (i < 4 G: rows
-// 32 q + 4 tm + r of a 32 G-row tile) and columns 4 tn + j (j < 4), where
-// tn = lane % 16 and tm = 2 warp + lane / 16.
-__device__ __forceinline__ int tile_row(int tm, int i) {
-  return 32 * (i / 4) + 4 * tm + i % 4;
+// a rounded to TF32 as cvt.rna.tf32.f32 rounds it (nearest, ties away
+// from zero) with its low 13 bits cleared, so the value is exact both as
+// f32 and as a TF32 operand: half of the dropped unit added to the
+// magnitude's bits carries into the kept ones exactly when the dropped
+// part is at least half.  Two integer operations, the rounding that the
+// tests' CPU model does bit for bit; the cvt measured no faster.
+__device__ __forceinline__ float tf32_rna(float a) {
+  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xFFFFE000u);
 }
-
-__device__ __forceinline__ float comp(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// A slice of the data products: as[row][k] (the tile's rows, k along
-// the reduction), bs[k][col].  Per 4-deep step a thread reads 4 G float4s
-// of its rows (two distinct addresses a warp each) and 4 of b (16
-// consecutive float4s a warp each) for 64 G FMAs; every output sums its
-// products in k order.
-template <int G>
-__device__ __forceinline__ void mma_rows(const float (*as)[kLdK],
-                                         const float (*bs)[kLd], int tm,
-                                         int tn, float (&acc)[4 * G][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 4) {
-    float4 av[4 * G], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4 * G; ++i)
-      av[i] = *reinterpret_cast<const float4*>(&as[tile_row(tm, i)][kk]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(&bs[kk + j][4 * tn]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4 * G; ++i) {
-        const float a = comp(av[i], j);
-        acc[i][0] = fmaf(a, bv[j].x, acc[i][0]);
-        acc[i][1] = fmaf(a, bv[j].y, acc[i][1]);
-        acc[i][2] = fmaf(a, bv[j].z, acc[i][2]);
-        acc[i][3] = fmaf(a, bv[j].w, acc[i][3]);
-      }
-  }
-}
-
-// A slice of the weight gradients: as[m][row], bs[m][col] with m the
-// reduction (pixel) index.  Per step a thread reads 2 float4s of a[m] and
-// one of b[m] for 32 FMAs.
-__device__ __forceinline__ void mma_cols(const float (*as)[kLd],
-                                         const float (*bs)[kLd], int tm,
-                                         int tn, float (&acc)[8][4]) {
-#pragma unroll
-  for (int k = 0; k < kBK; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&as[k][4 * tm]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&as[k][32 + 4 * tm]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][4 * tn]);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
+// a = hi + lo to 22 significant bits.
+__device__ __forceinline__ void split_tf32(float a, float& hi, float& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - hi);
 }
 
 // Whether pixel m (of B images of H x W) shifted by (dy, dx) stays inside
@@ -172,71 +163,251 @@ __device__ __forceinline__ bool in_image(int m, int dy, int dx, int H,
   return y >= 0 && y < H && x >= 0 && x < W;
 }
 
-// out (M, N) = epilogue(A (M, K) . bmat (K, N)) in tiles of 32 G x 64.
-// For kConv, K = 9f ordered (tap, channel), tap = (dy + 1) * 3 + (dx + 1),
-// and the A row of pixel m at tap is pixel m + dy W + dx of a (M, f) map,
-// zero outside the image.  Epilogue, each step only where its pointer or
-// flag is set: + bias[n], + add[m, n], relu, then 0 where mask[m, n] <= 0.
-// N % 64 == 0, K % 16 == 0 (f % 16 == 0 for kConv); M is masked.
-template <bool kConv, int G>
-__global__ void __launch_bounds__(kThreads)
-chain_bwd_gemm_kernel(const float* __restrict__ a,
-                      const float* __restrict__ bmat, float* __restrict__ out,
-                      int M, int N, int K, int H, int W,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ add,
-                      const float* __restrict__ mask, int relu) {
-  __shared__ __align__(16) float as[kStages][32 * G][kLdK];
-  __shared__ __align__(16) float bs[kStages][kBK][kLd];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int tn = lane % 16, tm = 2 * warp + lane / 16;
-  const int m0 = blockIdx.x * 32 * G, n0 = blockIdx.y * kBN;
-  const int f = kConv ? K / 9 : K;
+// The block that finishes a split output tile last: every thread has
+// stored its partial sums; returns true in every thread of the block that
+// arrived last, which then resets the tile's counter to 0 for the next
+// launch.  Which block that is decides nothing about the order in which
+// the partials are added.
+__device__ __forceinline__ bool last_split(int* counter, int splits) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == splits - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
 
-  // A: thread copies 16-byte chunk ac (4 channels) of tile rows ar + 32 p
-  // (p < G); B: 16-byte chunk bc of slice rows br and br + 8.
-  const int ar = tid / 4, ac = tid % 4;
-  const int br = tid / 16, bc = tid % 16;
-  const float* a_row[G];
-  unsigned a_taps[G];  // bit tap: the shifted pixel is inside the image
+// acc[i] (each thread's R registers of a tile) = the sum over the splits,
+// in split order, of the partials that every split stored at part[(s R +
+// i) * kThreads + tid], this block's own included (read back, so the sum
+// is the same whichever block adds).  A split's R loads are independent
+// and go out together: a loop over i inside s would wait for L2 once per
+// register.
+template <int R>
+__device__ __forceinline__ void sum_splits(float (&acc)[R],
+                                           const float* part, int splits) {
+  const int tid = threadIdx.x;
 #pragma unroll
-  for (int p = 0; p < G; ++p) {
-    const int m = m0 + ar + 32 * p;
-    a_row[p] = a + static_cast<size_t>(m < M ? m : 0) * f + 4 * ac;
-    a_taps[p] = 0;
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* src = part + static_cast<size_t>(sp) * R * kThreads + tid;
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] += __ldcg(src + i * kThreads);
+  }
+}
+template <int R>
+__device__ __forceinline__ void store_split(const float (&acc)[R],
+                                            float* part, int own) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    __stcg(part + (static_cast<size_t>(own) * R + i) * kThreads + tid,
+           acc[i]);
+}
+
+// ---- data products: wgmma in split TF32 ---------------------------------
+
+constexpr int kBM = 64;          // tile rows: one wgmma M
+constexpr int kSlice = 32;       // K slice: 32 floats, one 128-byte row
+constexpr int kRowBytes = 128;
+constexpr int kATile = kBM * kRowBytes;
+constexpr int kPassBytes = 16 * kRowBytes;  // 16 tile rows a copy pass
+constexpr int kStages = 3;
+
+__host__ __device__ constexpr int b_tile_bytes(int bn) {
+  return bn * kRowBytes;
+}
+// A (hi in place), A lo, B (hi in place) and, under f32, B lo.
+__host__ __device__ constexpr int stage_bytes(int bn, bool split_b) {
+  return 2 * kATile + (split_b ? 2 : 1) * b_tile_bytes(bn);
+}
+__host__ __device__ constexpr int product_smem_bytes(int bn, bool split_b) {
+  return kStages * stage_bytes(bn, split_b) + 1024;  // + room to align
+}
+
+// Shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart; the leading-dimension offset is unused in this mode.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+// Orders generic-proxy writes to shared memory (cp.async, st.shared)
+// before the async proxy's reads (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d = (scale_d ? d : 0) + A(64 x 8) . B(8 x BN), TF32 operands from
+// shared memory, f32 accumulators.
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  if constexpr (BN == 64) wgmma_m64n64k8(d, da, db, scale_d);
+  else wgmma_m64n128k8(d, da, db, scale_d);
+}
+
+// One data product: out (M, N) = epilogue(A (M, K) . bt (N, K)^T).  For
+// kConv, K = 9f ordered (tap, channel), tap = (dy + 1) * 3 + (dx + 1),
+// and the A row of pixel m at tap is pixel m + dy W + dx of the (M, f)
+// map, zero outside the image.  Epilogue, each step only where its
+// pointer or flag is set: + bias[n], + add[m, n], relu, then 0 where
+// mask[m, n] <= 0.  The K range is cut into `splits` equal parts (for
+// kConv whole groups of taps), grid.z; partial tiles go through `part`.
+struct Product {
+  const float* a;
+  const float* bt;
+  float* out;
+  const float* bias;
+  const float* add;
+  const float* mask;
+  float* part;
+  int* counters;
+  int M, N, K, H, W, splits, relu;
+};
+
+// N % BN == 0; K / splits % 32 == 0 (for kConv, f % 32 == 0 and 9 %
+// splits == 0); M is masked.
+template <bool kConv, int BN, bool kSplitB>
+__global__ void __launch_bounds__(kThreads)
+chain_bwd_wgmma_kernel(const Product p) {
+  constexpr int kStageBytes = stage_bytes(BN, kSplitB);
+  constexpr int kBTile = b_tile_bytes(BN);
+  constexpr int kBPasses = BN / 16;  // B rows per thread and slice
+  constexpr int kR = BN / 2;         // accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t smem_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN, split = blockIdx.z;
+  const int M = p.M, K = p.K, W = p.W;
+  const int f = kConv ? K / 9 : K;
+  const int kspan = K / p.splits, nk = kspan / kSlice;
+  // A thread copies 16-byte chunk `chunk` of tile rows r_base + 16 q.  In
+  // the swizzled K-major layout (tile base 1024-aligned) chunk c of row r
+  // lies at r * 128 + ((c ^ (r & 7)) << 4); r & 7 is the same for all q.
+  const int chunk = tid % 8, r_base = tid / 8;
+  const int dst = r_base * kRowBytes + ((chunk ^ (r_base & 7)) << 4);
+
+  // Per A row: where its pixel's channels start, and which of the taps
+  // lie inside the image (bit `tap`; a 1x1 has the one tap 0).
+  const float* a_row[4];
+  unsigned a_taps[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int m = m0 + r_base + 16 * q;
+    a_row[q] = p.a;
+    a_taps[q] = 0;
     if (m < M) {
+      a_row[q] = p.a + static_cast<size_t>(m) * f + chunk * 4;
+      a_taps[q] = 1;
       if (kConv) {
+        a_taps[q] = 0;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap)
-          if (in_image(m, tap / 3 - 1, tap % 3 - 1, H, W))
-            a_taps[p] |= 1u << tap;
-      } else {
-        a_taps[p] = 1;
+          if (in_image(m, tap / 3 - 1, tap % 3 - 1, p.H, W))
+            a_taps[q] |= 1u << tap;
       }
     }
   }
-  const float* b_col = bmat + n0 + 4 * bc;
+  const float* b_row = p.bt + static_cast<size_t>(n0 + r_base) * K + chunk * 4;
 
   // The producer's position: slice ld_k0, inside tap ld_tap at channel
-  // ld_kin (a slice never straddles two taps).
-  int ld_k0 = 0, ld_tap = 0, ld_kin = 0, ld_stage = 0;
+  // ld_kin (a slice never straddles two taps: f divides by the slice).
+  int ld_k0 = split * kspan;
+  int ld_tap = kConv ? ld_k0 / f : 0, ld_kin = kConv ? ld_k0 % f : 0;
+  int ld_stage = 0;
   auto load_slice = [&]() {
+    uint8_t* st = smem + ld_stage * kStageBytes + dst;
     const int a_off = kConv
                           ? ((ld_tap / 3 - 1) * W + ld_tap % 3 - 1) * f + ld_kin
                           : ld_k0;
 #pragma unroll
-    for (int p = 0; p < G; ++p) {
-      const bool ok = (a_taps[p] >> (kConv ? ld_tap : 0)) & 1;
-      cp_async16(&as[ld_stage][ar + 32 * p][4 * ac],
-                 ok ? a_row[p] + a_off : a, ok);
+    for (int q = 0; q < 4; ++q) {
+      const bool ok = (a_taps[q] >> ld_tap) & 1;
+      cp_async16(st + q * kPassBytes, ok ? a_row[q] + a_off : p.a, ok);
     }
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
-      cp_async16(&bs[ld_stage][br + 8 * p][4 * bc],
-                 b_col + static_cast<size_t>(ld_k0 + br + 8 * p) * N, true);
-    ld_k0 += kBK;
+    for (int q = 0; q < kBPasses; ++q)
+      cp_async16(st + 2 * kATile + q * kPassBytes,
+                 b_row + static_cast<size_t>(16 * q) * K + ld_k0, true);
+    ld_k0 += kSlice;
     if (kConv) {
-      ld_kin += kBK;
+      ld_kin += kSlice;
       if (ld_kin == f) {
         ld_kin = 0;
         ++ld_tap;
@@ -244,133 +415,274 @@ chain_bwd_gemm_kernel(const float* __restrict__ a,
     }
     ld_stage = ld_stage + 1 == kStages ? 0 : ld_stage + 1;
   };
-
-  float acc[4 * G][4];
+  // The chunks this thread copied into `stage`, split in place: hi over
+  // the f32, lo at the same offset in the next tile.
+  auto split4 = [](uint8_t* at, int lo_off) {
+    const float4 v = *reinterpret_cast<const float4*>(at);
+    float4 hi, lo;
+    split_tf32(v.x, hi.x, lo.x);
+    split_tf32(v.y, hi.y, lo.y);
+    split_tf32(v.z, hi.z, lo.z);
+    split_tf32(v.w, hi.w, lo.w);
+    *reinterpret_cast<float4*>(at) = hi;
+    *reinterpret_cast<float4*>(at + lo_off) = lo;
+  };
+  auto split_slice = [&](int stage) {
+    uint8_t* st = smem + stage * kStageBytes + dst;
 #pragma unroll
-  for (int i = 0; i < 4 * G; ++i)
+    for (int q = 0; q < 4; ++q) split4(st + q * kPassBytes, kATile);
+    if (kSplitB) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  const int nk = K / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_slice();
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    // Slice kt is the oldest of at most kStages - 1 pending groups.
-    cp_async_wait<kStages - 2>();
-    // Every thread's copies of slice kt have landed, and every thread is
-    // done with slice kt - 1, whose stage the next copy refills.
-    __syncthreads();
-    if (kt + kStages - 1 < nk) load_slice();
-    cp_async_commit();
-    mma_rows<G>(as[kt % kStages], bs[kt % kStages], tm, tn, acc);
-  }
-  cp_async_wait<0>();
-
-  const int n = n0 + 4 * tn;
-  const float4 bv = bias ? *reinterpret_cast<const float4*>(bias + n)
-                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-  for (int i = 0; i < 4 * G; ++i) {
-    const int m = m0 + tile_row(tm, i);
-    if (m >= M) continue;
-    const size_t o = static_cast<size_t>(m) * N + n;
-    float v[4] = {acc[i][0] + bv.x, acc[i][1] + bv.y, acc[i][2] + bv.z,
-                  acc[i][3] + bv.w};
-    if (add) {
-      const float4 t = *reinterpret_cast<const float4*>(add + o);
-      v[0] += t.x;
-      v[1] += t.y;
-      v[2] += t.z;
-      v[3] += t.w;
+      for (int q = 0; q < kBPasses; ++q)
+        split4(st + 2 * kATile + q * kPassBytes, kBTile);
     }
-    if (relu) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = fmaxf(v[j], 0.0f);
-    }
-    if (mask) {
-      const float4 t = *reinterpret_cast<const float4*>(mask + o);
-      v[0] = t.x > 0.0f ? v[0] : 0.0f;
-      v[1] = t.y > 0.0f ? v[1] : 0.0f;
-      v[2] = t.z > 0.0f ? v[2] : 0.0f;
-      v[3] = t.w > 0.0f ? v[3] : 0.0f;
-    }
-    *reinterpret_cast<float4*>(out + o) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// part[s][tap] (Ka, Kb) = sum over the pixels m of split s (rows
-// [s chunk, min(M, (s + 1) chunk))) of A[m'] (x) bm[m], where m' = m for
-// taps == 1 and, for taps == 9, m' is pixel m shifted by the tap (zero
-// outside the image).  Grid: (Kb / 64, Ka / 64, splits * taps); Ka and Kb
-// multiples of 64, chunk a multiple of 16.
-template <bool kShift>
-__global__ void __launch_bounds__(kThreads)
-chain_bwd_wgrad_kernel(const float* __restrict__ a,
-                       const float* __restrict__ bm, float* __restrict__ part,
-                       int M, int Ka, int Kb, int H, int W, int chunk) {
-  __shared__ __align__(16) float as[kStages][kBK][kLd];
-  __shared__ __align__(16) float bs[kStages][kBK][kLd];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int tn = lane % 16, tm = 2 * warp + lane / 16;
-  const int n0 = blockIdx.x * kBN, k10 = blockIdx.y * 64;
-  const int taps = kShift ? 9 : 1;
-  const int tap = blockIdx.z % taps, split = blockIdx.z / taps;
-  const int dy = kShift ? tap / 3 - 1 : 0, dx = kShift ? tap % 3 - 1 : 0;
-  const int mbeg = split * chunk;
-  const int mend = min(M, mbeg + chunk);
-
-  // Thread copies 16-byte chunk c of slice rows r and r + 8, of A and bm.
-  const int r = tid / 16, c = tid % 16;
-  int ld_m0 = mbeg, ld_stage = 0;
-  auto load_slice = [&]() {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int m = ld_m0 + r + 8 * p;
-      const bool in = m < mend;
-      const bool ok = in && (!kShift || in_image(m, dy, dx, H, W));
-      const int src = ok ? m + dy * W + dx : 0;
-      cp_async16(&as[ld_stage][r + 8 * p][4 * c],
-                 a + static_cast<size_t>(src) * Ka + k10 + 4 * c, ok);
-      cp_async16(&bs[ld_stage][r + 8 * p][4 * c],
-                 bm + static_cast<size_t>(in ? m : 0) * Kb + n0 + 4 * c, in);
-    }
-    ld_m0 += kBK;
-    ld_stage = ld_stage + 1 == kStages ? 0 : ld_stage + 1;
   };
 
-  float acc[8][4];
+  float acc[kR], tmp[kR];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int i = 0; i < kR; ++i) acc[i] = tmp[i] = 0.0f;
 
-  const int nk = mend > mbeg ? (mend - mbeg + kBK - 1) / kBK : 0;
+  // Slice kt: copied (kt + 2 at most), split by the threads that copied
+  // it while slice kt - 1 is multiplied, multiplied; its stage is
+  // refilled with slice kt + 3 once every warp's wgmmas on it completed.
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kStages; ++s) {
     if (s < nk) load_slice();
     cp_async_commit();
   }
+  cp_async_wait<kStages - 1>();
+  if (nk > 0) split_slice(0);
+  fence_proxy_async();
+  __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
+    const int cur = kt % kStages;
+    const uint32_t base = smem_addr + cur * kStageBytes;
+    const uint64_t a_hi = smem_desc(base), a_lo = smem_desc(base + kATile);
+    const uint64_t b_hi = smem_desc(base + 2 * kATile);
+    const uint64_t b_lo = smem_desc(base + 2 * kATile + kBTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSlice / 8; ++kk) {  // 32 bytes along K: +2
+      wgmma_tile<BN>(tmp, a_lo + 2 * kk, b_hi + 2 * kk, kk > 0);
+      if (kSplitB) wgmma_tile<BN>(tmp, a_hi + 2 * kk, b_lo + 2 * kk, 1);
+      wgmma_tile<BN>(tmp, a_hi + 2 * kk, b_hi + 2 * kk, 1);
+    }
+    wgmma_commit();
+    if (kt + 1 < nk) {
+      cp_async_wait<kStages - 2>();  // slice kt + 1 has landed
+      split_slice((kt + 1) % kStages);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kR; ++i) acc[i] += tmp[i];
+    fence_proxy_async();
     __syncthreads();
-    if (kt + kStages - 1 < nk) load_slice();
+    if (kt + kStages < nk) load_slice();  // into stage cur
     cp_async_commit();
-    mma_cols(as[kt % kStages], bs[kt % kStages], tm, tn, acc);
   }
   cp_async_wait<0>();
 
-  float* base = part + (static_cast<size_t>(split) * taps + tap) * Ka * Kb;
+  if (p.splits > 1) {
+    const int tile = blockIdx.x + gridDim.x * blockIdx.y;
+    float* part = p.part + static_cast<size_t>(tile) * p.splits * kR * kThreads;
+    store_split(acc, part, split);
+    if (!last_split(p.counters + tile, p.splits)) return;
+    sum_splits(acc, part, p.splits);
+  }
+
+  // wgmma's D layout: warp w holds rows 16 w + g and 16 w + g + 8 (g =
+  // lane / 4), columns 8 j + 2 t, + 1 (t = lane % 4) in acc[4 j .. 4 j + 3].
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k1 = k10 + tile_row(tm, i);
-    *reinterpret_cast<float4*>(base + static_cast<size_t>(k1) * Kb + n0 +
-                               4 * tn) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 16 * warp + g + 8 * h;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      const size_t o = static_cast<size_t>(m) * p.N + n;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (p.bias) {
+        v0 += p.bias[n];
+        v1 += p.bias[n + 1];
+      }
+      if (p.add) {
+        const float2 a = *reinterpret_cast<const float2*>(p.add + o);
+        v0 += a.x;
+        v1 += a.y;
+      }
+      if (p.relu) {
+        v0 = fmaxf(v0, 0.0f);
+        v1 = fmaxf(v1, 0.0f);
+      }
+      if (p.mask) {
+        const float2 k = *reinterpret_cast<const float2*>(p.mask + o);
+        v0 = k.x > 0.0f ? v0 : 0.0f;
+        v1 = k.y > 0.0f ? v1 : 0.0f;
+      }
+      *reinterpret_cast<float2*>(p.out + o) = make_float2(v0, v1);
+    }
   }
 }
+
+// ---- weight gradients: wgmma in split TF32 ------------------------------
+
+constexpr int kWSlice = 32;              // pixels a slice: one 128-byte row
+constexpr int kWStage = 2 * kWSlice * 64 * 4;   // staging of A and B, bytes
+constexpr int kWTiles = 4 * kATile;      // A hi, A lo, B hi, B lo (64 rows)
+constexpr int kWSmemBytes = 2 * kWTiles + 2 * kWStage + 1024;
+
+// out (taps, Ka, Kb) = sum over the pixels m of A[m'] (x) bm[m], where m'
+// = m for taps == 1 and, for taps == 9, m' is pixel m shifted by the tap
+// (zero outside the image).  The pixels are cut into splits of `chunk`;
+// grid (Kb / 64, Ka / 64, splits * taps), partial tiles through `part`.
+struct Wgrad {
+  const float* a;
+  const float* bm;
+  float* out;
+  float* part;
+  int* counters;
+  int M, Ka, Kb, H, W, chunk;
+};
+
+// Both operands are stored along the channels, and TF32 wgmma reads only
+// K-major (here pixel-major) tiles: a slice of 32 pixels x 64 channels of
+// each is copied as it lies into a staging buffer, then split and
+// transposed in one pass through registers into the swizzled K-major hi
+// and lo tiles (a thread reads four pixels of one channel, conflict-free
+// along the channels, and writes them as one 16-byte chunk of hi and of
+// lo), while the previous slice's wgmmas run.  Two staging buffers and
+// two sets of tiles: 96 KB, two blocks an SM.
+template <bool kShift>
+__global__ void __launch_bounds__(kThreads)
+chain_bwd_wgrad_kernel(const Wgrad p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t smem_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  uint8_t* staging = smem + 2 * kWTiles;  // [2][A, B][32 px][64 ch] f32
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * 64, k10 = blockIdx.y * 64;
+  const int taps = kShift ? 9 : 1;
+  const int tap = blockIdx.z % taps, split = blockIdx.z / taps;
+  const int splits = gridDim.z / taps;
+  const int dy = kShift ? tap / 3 - 1 : 0, dx = kShift ? tap % 3 - 1 : 0;
+  const int mbeg = split * p.chunk;
+  const int mend = min(p.M, mbeg + p.chunk);
+  const int Ka = p.Ka, Kb = p.Kb;
+
+  // Copies: thread moves 16-byte chunk c of staging rows r + 8 q, of A
+  // and of bm.
+  const int r = tid / 16, c = tid % 16;
+  int ld_m0 = mbeg, ld_buf = 0;
+  auto load_slice = [&]() {
+    float* as = reinterpret_cast<float*>(staging + ld_buf * kWStage);
+    float* bs = as + kWSlice * 64;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = ld_m0 + r + 8 * q;
+      const bool in = m < mend;
+      const bool ok = in && (!kShift || in_image(m, dy, dx, p.H, p.W));
+      const int src = ok ? m + dy * p.W + dx : 0;
+      cp_async16(as + (r + 8 * q) * 64 + 4 * c,
+                 p.a + static_cast<size_t>(src) * Ka + k10 + 4 * c, ok);
+      cp_async16(bs + (r + 8 * q) * 64 + 4 * c,
+                 p.bm + static_cast<size_t>(in ? m : 0) * Kb + n0 + 4 * c, in);
+    }
+    ld_m0 += kWSlice;
+    ld_buf ^= 1;
+  };
+  // Split and transpose: thread takes channel ch = tid % 64 of operand
+  // tid / 64 (A, then B) and the eight 4-pixel groups of the slice; chunk
+  // Q of tile row ch lies at ch * 128 + ((Q ^ (ch & 7)) << 4).
+  const int ch = tid % 64, opnd = tid / 64;
+  auto split_slice = [&](int buf, int set) {
+    const float* src = reinterpret_cast<const float*>(staging + buf * kWStage) +
+                       opnd * kWSlice * 64 + ch;
+    uint8_t* hi = smem + set * kWTiles + opnd * 2 * kATile + ch * kRowBytes;
+#pragma unroll
+    for (int Q = 0; Q < kWSlice / 4; ++Q) {
+      float4 h, l;
+      split_tf32(src[(4 * Q + 0) * 64], h.x, l.x);
+      split_tf32(src[(4 * Q + 1) * 64], h.y, l.y);
+      split_tf32(src[(4 * Q + 2) * 64], h.z, l.z);
+      split_tf32(src[(4 * Q + 3) * 64], h.w, l.w);
+      const int off = (Q ^ (ch & 7)) << 4;
+      *reinterpret_cast<float4*>(hi + off) = h;
+      *reinterpret_cast<float4*>(hi + kATile + off) = l;
+    }
+  };
+
+  float acc[32], tmp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = tmp[i] = 0.0f;
+
+  // Slice kt: copied two slices ahead, split and transposed while slice
+  // kt - 1 is multiplied, multiplied; a staging buffer is refilled once
+  // its slice is split, a set of tiles once its wgmmas completed.
+  const int nk = mend > mbeg ? (mend - mbeg + kWSlice - 1) / kWSlice : 0;
+  if (nk > 0) load_slice();
+  cp_async_commit();
+  if (nk > 1) load_slice();
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  if (nk > 0) split_slice(0, 0);
+  fence_proxy_async();
+  __syncthreads();
+  if (nk > 2) load_slice();  // into buffer 0
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    const uint32_t base = smem_addr + (kt & 1) * kWTiles;
+    const uint64_t a_hi = smem_desc(base), a_lo = smem_desc(base + kATile);
+    const uint64_t b_hi = smem_desc(base + 2 * kATile);
+    const uint64_t b_lo = smem_desc(base + 3 * kATile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWSlice / 8; ++kk) {
+      wgmma_tile<64>(tmp, a_lo + 2 * kk, b_hi + 2 * kk, kk > 0);
+      wgmma_tile<64>(tmp, a_hi + 2 * kk, b_lo + 2 * kk, 1);
+      wgmma_tile<64>(tmp, a_hi + 2 * kk, b_hi + 2 * kk, 1);
+    }
+    wgmma_commit();
+    if (kt + 1 < nk) {
+      cp_async_wait<1>();  // this thread's copies of slice kt + 1
+      __syncthreads();     // everyone's
+      split_slice((kt + 1) & 1, (kt + 1) & 1);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += tmp[i];
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + 3 < nk) load_slice();  // into the buffer slice kt + 1 left
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  if (splits > 1) {
+    const int tile = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * tap);
+    float* part = p.part + static_cast<size_t>(tile) * splits * 32 * kThreads;
+    store_split(acc, part, split);
+    if (!last_split(p.counters + tile, splits)) return;
+    sum_splits(acc, part, splits);
+  }
+  // wgmma's D layout, as in the data products: rows k10 + 16 w + g (+ 8),
+  // columns n0 + 8 j + 2 t, + 1.
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  float* out = p.out + static_cast<size_t>(tap) * Ka * Kb;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t row = static_cast<size_t>(k10 + 16 * warp + g + 8 * h) * Kb;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(out + row + n0 + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// ---- bias gradients and masks: sums on the CUDA cores -------------------
 
 // part[s][n] = sum over the rows m of split s of v[m][n], m in order.
 __global__ void chain_bwd_colsum_kernel(const float* __restrict__ v,
@@ -406,40 +718,53 @@ __global__ void chain_bwd_relu_mask_kernel(const float* __restrict__ g,
   if (i < n) out[i] = y[i] > 0.0f ? g[i] : 0.0f;
 }
 
+// ---- host side -----------------------------------------------------------
+
 int ceil_div(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
 
-// 64-row tiles where they give at least two blocks an SM, else 32-row
-// ones (twice the blocks, each output still summed in k order).
-template <bool kConv>
-cudaError_t gemm(const float* a, const float* bmat, float* out, int M, int N,
-                 int K, int H, int W, const float* bias, const float* add,
-                 const float* mask, bool relu, int sms, cudaStream_t s) {
-  const long long tall = static_cast<long long>(ceil_div(M, 64)) * (N / kBN);
-  if (tall >= 2LL * sms)
-    chain_bwd_gemm_kernel<kConv, 2><<<dim3(ceil_div(M, 64), N / kBN),
-                                      kThreads, 0, s>>>(
-        a, bmat, out, M, N, K, H, W, bias, add, mask, relu ? 1 : 0);
-  else
-    chain_bwd_gemm_kernel<kConv, 1><<<dim3(ceil_div(M, 32), N / kBN),
-                                      kThreads, 0, s>>>(
-        a, bmat, out, M, N, K, H, W, bias, add, mask, relu ? 1 : 0);
+// The opt-in above 48 KB of dynamic shared memory, once per kernel and
+// device.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int bytes, int dev, bool (&opted)[64]) {
+  if (dev >= 0 && dev < 64 && opted[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev >= 0 && dev < 64) opted[dev] = true;
+  return e;
+}
+
+template <bool kConv, int BN, bool kSplitB>
+cudaError_t launch_product(const Product& p, int dev, cudaStream_t s) {
+  constexpr int smem = product_smem_bytes(BN, kSplitB);
+  static bool opted[64] = {};
+  const cudaError_t e =
+      opt_in(chain_bwd_wgmma_kernel<kConv, BN, kSplitB>, smem, dev, opted);
+  if (e != cudaSuccess) return e;
+  chain_bwd_wgmma_kernel<kConv, BN, kSplitB>
+      <<<dim3(ceil_div(p.M, kBM), p.N / BN, p.splits), kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-// out (taps, Ka, Kb) = A^T bm over the pixels, through `part`.
+// 128-wide tiles where N allows (the wrapper's product_tiles mirrors it).
+template <bool kConv>
+cudaError_t product(const Product& p, bool split_b, int dev, cudaStream_t s) {
+  if (p.N % 128 == 0)
+    return split_b ? launch_product<kConv, 128, true>(p, dev, s)
+                   : launch_product<kConv, 128, false>(p, dev, s);
+  return split_b ? launch_product<kConv, 64, true>(p, dev, s)
+                 : launch_product<kConv, 64, false>(p, dev, s);
+}
+
 template <bool kShift>
-cudaError_t wgrad(const float* a, const float* bm, float* out, float* part,
-                  int M, int Ka, int Kb, int H, int W, int chunk,
-                  cudaStream_t s) {
-  const int splits = ceil_div(M, chunk), taps = kShift ? 9 : 1;
-  chain_bwd_wgrad_kernel<kShift><<<dim3(Kb / kBN, Ka / 64, splits * taps),
-                                   kThreads, 0, s>>>(a, bm, part, M, Ka, Kb,
-                                                     H, W, chunk);
-  cudaError_t e = cudaGetLastError();
+cudaError_t wgrad(const Wgrad& p, int dev, cudaStream_t s) {
+  static bool opted[64] = {};
+  const cudaError_t e =
+      opt_in(chain_bwd_wgrad_kernel<kShift>, kWSmemBytes, dev, opted);
   if (e != cudaSuccess) return e;
-  const long long n = static_cast<long long>(taps) * Ka * Kb;
-  chain_bwd_sum_splits_kernel<<<ceil_div(n, 256), 256, 0, s>>>(part, out,
-                                                              splits, n);
+  const int splits = ceil_div(p.M, p.chunk), taps = kShift ? 9 : 1;
+  chain_bwd_wgrad_kernel<kShift>
+      <<<dim3(p.Kb / 64, p.Ka / 64, splits * taps), kThreads, kWSmemBytes,
+          s>>>(p);
   return cudaGetLastError();
 }
 
@@ -456,15 +781,27 @@ cudaError_t colsum(const float* v, float* out, float* part, int M, int N,
   return cudaGetLastError();
 }
 
-// Floats of scratch for the partial sums.
+long long most(long long a, long long b) { return a > b ? a : b; }
+
+// Floats of scratch for the partial sums: a split data product's tiles
+// (rows padded to 64), a weight gradient's, a bias's.
 long long part_floats(int M, int C, int F, int chunk_w13, int chunk_w2,
-                      int chunk_bias) {
-  const long long w13 = static_cast<long long>(ceil_div(M, chunk_w13)) * C * F;
-  const long long w2 = static_cast<long long>(ceil_div(M, chunk_w2)) * 9 * F * F;
-  const long long bias = static_cast<long long>(ceil_div(M, chunk_bias)) *
-                         (C > F ? C : F);
-  long long most = w13 > w2 ? w13 : w2;
-  return most > bias ? most : bias;
+                      int chunk_bias, int split_in, int split_3x3,
+                      int split_out) {
+  const long long mp = static_cast<long long>(ceil_div(M, kBM)) * kBM;
+  long long n = most(static_cast<long long>(ceil_div(M, chunk_w13)) * C * F,
+                     static_cast<long long>(ceil_div(M, chunk_w2)) * 9 * F * F);
+  n = most(n, static_cast<long long>(ceil_div(M, chunk_bias)) * most(C, F));
+  n = most(n, most(split_in, split_3x3) * mp * F);
+  return most(n, split_out * mp * C);
+}
+
+// Counters: one per output tile of the product or weight gradient with
+// the most tiles.
+long long counter_slots(int M, int C, int F) {
+  const long long rows = ceil_div(M, kBM);
+  return most(most(rows * (most(C, F) / 64), 9LL * (F / 64) * (F / 64)),
+              static_cast<long long>(C / 64) * (F / 64));
 }
 
 #define SCDA_TRY(call)                          \
@@ -476,42 +813,55 @@ long long part_floats(int M, int C, int F, int chunk_w13, int chunk_w2,
 }  // namespace
 
 // Floats of workspace the backward needs: x_1..x_N, y1 and y2 of every
-// block, two (M, C) cotangent buffers, dy2 and dy1, and the partial sums.
+// block (the remat, in that order), two (M, C) cotangent buffers, dy2 and
+// dy1, the partial sums, and the split counters (ints).
 extern "C" long long scda_bottleneck_chain_bwd_workspace(
     int B, int H, int W, int C, int F, int N, int chunk_w13, int chunk_w2,
-    int chunk_bias) {
+    int chunk_bias, int split_in, int split_3x3, int split_out) {
   const long long M = static_cast<long long>(B) * H * W;
   return N * M * C + 2LL * N * M * F + 2 * M * C + 2 * M * F +
          part_floats(static_cast<int>(M), C, F, chunk_w13, chunk_w2,
-                     chunk_bias);
+                     chunk_bias, split_in, split_3x3, split_out) +
+         counter_slots(static_cast<int>(M), C, F);
 }
 
 // Inputs, all f32, contiguous, 16-byte aligned: x (B,H,W,C) and g (its
-// output's cotangent, same shape); w1 (N,C,F), b1 (N,F), w2 (N,9,F,F)
-// ordered (tap, in, out), b2 (N,F), w3 (N,F,C), b3 (N,C), as the forward
-// takes them; w1t = w1 transposed (N,F,C), w3t = w3 transposed (N,C,F),
-// w2r (N,9,F,F) with w2r[i][t][o][c] = w2[i][8 - t][c][o].  Outputs, each
-// skipped where null: dx, dw1..db3 in the shapes of x, w1..b3.  work:
-// scda_bottleneck_chain_bwd_workspace floats.  chunk_*: pixels per split
-// of the weight (w1 and w3; w2) and bias gradients, multiples of 16.
+// output's cotangent, same shape); the weights packed with the reduction
+// axis contiguous, as (out, in) of each product: for the remat w1t
+// (N,F,C), w2t (N,F,9F) with w2t[i][o][t F + c] = w2[i][t][c][o], w3t
+// (N,C,F); for the data gradients w3 (N,F,C), w2r (N,F,9F) with
+// w2r[i][c][t F + o] = w2[i][8 - t][c][o], w1 (N,C,F), all as the forward
+// takes them rounded to its dtype; b1 (N,F), b2 (N,F), b3 (N,C).
+// data_passes: 2 when every weight is exact in TF32 (bf16 values), else
+// 3.  Outputs, each skipped where null: dx, dw1..db3 in the shapes of x
+// and of w1 (N,C,F), b1, w2 (N,9,F,F) (tap, in, out), b2, w3 (N,F,C), b3.
+// work: scda_bottleneck_chain_bwd_workspace floats.  chunk_*: pixels per
+// split of the weight (w1 and w3; w2) and bias gradients, multiples of
+// 16; split_*: K splits of the reduce-side 1x1 products (remat y1, dy2),
+// the 3x3s (a divisor of 9) and the expand-side ones (remat x, dx).
 // C % 64 == 0, F % 64 == 0.
 extern "C" int scda_bottleneck_chain_bwd_f32(
-    const void* x_, const void* w1_, const void* b1_, const void* w2_,
+    const void* x_, const void* w1_, const void* b1_, const void* w2t_,
     const void* b2_, const void* w3_, const void* b3_, const void* w1t_,
     const void* w2r_, const void* w3t_, const void* g_, void* dx_, void* dw1_,
     void* db1_, void* dw2_, void* db2_, void* dw3_, void* db3_, void* work_,
     int B, int H, int W, int C, int F, int N, int chunk_w13, int chunk_w2,
-    int chunk_bias, void* stream) {
+    int chunk_bias, int split_in, int split_3x3, int split_out,
+    int data_passes, void* stream) {
   const int M = B * H * W;
   if (M <= 0 || N <= 0) return cudaSuccess;
+  if ((data_passes != 2 && data_passes != 3) || C % 64 || F % 64 ||
+      split_in < 1 || C % (split_in * kSlice) || split_out < 1 ||
+      F % (split_out * kSlice) || split_3x3 < 1 || 9 % split_3x3)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
+  int dev = 0;
   SCDA_TRY(cudaGetDevice(&dev));
-  SCDA_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  const bool split_b = data_passes == 3;
   const float* x = static_cast<const float*>(x_);
   const float* w1 = static_cast<const float*>(w1_);
   const float* b1 = static_cast<const float*>(b1_);
-  const float* w2 = static_cast<const float*>(w2_);
+  const float* w2t = static_cast<const float*>(w2t_);
   const float* b2 = static_cast<const float*>(b2_);
   const float* w3 = static_cast<const float*>(w3_);
   const float* b3 = static_cast<const float*>(b3_);
@@ -536,18 +886,39 @@ extern "C" int scda_bottleneck_chain_bwd_f32(
   float* dy2 = gbuf[1] + mc;
   float* dy1 = dy2 + mf;
   float* part = dy1 + mf;
+  int* counters = reinterpret_cast<int*>(
+      part + part_floats(M, C, F, chunk_w13, chunk_w2, chunk_bias, split_in,
+                         split_3x3, split_out));
+  SCDA_TRY(cudaMemsetAsync(counters, 0, counter_slots(M, C, F) * sizeof(int),
+                           s));
   auto xi = [&](int i) -> const float* { return i == 0 ? x : xs + (i - 1) * mc; };
+  // A product of the chain: a (M, K) . bt (N, K)^T into out (M, N).
+  auto prod = [&](const float* a, const float* bt, float* out, int n, int k,
+                  int splits, const float* bias, const float* add,
+                  const float* mask, bool relu) {
+    Product p = {a, bt, out, bias, add, mask, part, counters,
+                 M, n, k, H, W, splits, relu ? 1 : 0};
+    return p;
+  };
+  auto wg = [&](const float* a, const float* bm, float* out, int ka, int kb,
+                int chunk) {
+    Wgrad p = {a, bm, out, part, counters, M, ka, kb, H, W, chunk};
+    return p;
+  };
 
   // 1. The remat, in f32.
   for (int i = 0; i < N; ++i) {
     float* y1 = y1s + i * mf;
     float* y2 = y2s + i * mf;
-    SCDA_TRY(gemm<false>(xi(i), w1 + i * cf, y1, M, F, C, H, W, b1 + i * F,
-                         nullptr, nullptr, true, sms, s));
-    SCDA_TRY(gemm<true>(y1, w2 + i * ff9, y2, M, F, 9 * F, H, W, b2 + i * F,
-                        nullptr, nullptr, true, sms, s));
-    SCDA_TRY(gemm<false>(y2, w3 + i * cf, xs + i * mc, M, C, F, H, W,
-                         b3 + i * C, xi(i), nullptr, true, sms, s));
+    SCDA_TRY(product<false>(prod(xi(i), w1t + i * cf, y1, F, C, split_in,
+                                 b1 + i * F, nullptr, nullptr, true),
+                            split_b, dev, s));
+    SCDA_TRY(product<true>(prod(y1, w2t + i * ff9, y2, F, 9 * F, split_3x3,
+                                b2 + i * F, nullptr, nullptr, true),
+                           split_b, dev, s));
+    SCDA_TRY(product<false>(prod(y2, w3t + i * cf, xs + i * mc, C, F,
+                                 split_out, b3 + i * C, xi(i), nullptr, true),
+                            split_b, dev, s));
   }
 
   // 2. The cotangent of the last block's pre-relu output.
@@ -563,31 +934,32 @@ extern "C" int scda_bottleneck_chain_bwd_f32(
     float* next = gbuf[(N - i) % 2];
     const float* y1 = y1s + i * mf;
     const float* y2 = y2s + i * mf;
-    if (dw3)
-      SCDA_TRY(wgrad<false>(y2, g3, dw3 + i * cf, part, M, F, C, H, W,
-                            chunk_w13, s));
+    if (dw3) SCDA_TRY(wgrad<false>(wg(y2, g3, dw3 + i * cf, F, C, chunk_w13),
+                                   dev, s));
     if (db3) SCDA_TRY(colsum(g3, db3 + i * C, part, M, C, chunk_bias, s));
     if (i == 0 && !more2 && !more1) break;
-    SCDA_TRY(gemm<false>(g3, w3t + i * cf, dy2, M, F, C, H, W, nullptr,
-                         nullptr, y2, false, sms, s));
-    if (dw2)
-      SCDA_TRY(wgrad<true>(y1, dy2, dw2 + i * ff9, part, M, F, F, H, W,
-                           chunk_w2, s));
+    SCDA_TRY(product<false>(prod(g3, w3 + i * cf, dy2, F, C, split_in,
+                                 nullptr, nullptr, y2, false),
+                            split_b, dev, s));
+    if (dw2) SCDA_TRY(wgrad<true>(wg(y1, dy2, dw2 + i * ff9, F, F, chunk_w2),
+                                  dev, s));
     if (db2) SCDA_TRY(colsum(dy2, db2 + i * F, part, M, F, chunk_bias, s));
     if (i == 0 && !more1) break;
-    SCDA_TRY(gemm<true>(dy2, w2r + i * ff9, dy1, M, F, 9 * F, H, W, nullptr,
-                        nullptr, y1, false, sms, s));
-    if (dw1)
-      SCDA_TRY(wgrad<false>(xi(i), dy1, dw1 + i * cf, part, M, C, F, H, W,
-                            chunk_w13, s));
+    SCDA_TRY(product<true>(prod(dy2, w2r + i * ff9, dy1, F, 9 * F, split_3x3,
+                                nullptr, nullptr, y1, false),
+                           split_b, dev, s));
+    if (dw1) SCDA_TRY(wgrad<false>(wg(xi(i), dy1, dw1 + i * cf, C, F,
+                                      chunk_w13), dev, s));
     if (db1) SCDA_TRY(colsum(dy1, db1 + i * F, part, M, F, chunk_bias, s));
     if (i == 0) {
       if (dx)
-        SCDA_TRY(gemm<false>(dy1, w1t, dx, M, C, F, H, W, nullptr, g3,
-                             nullptr, false, sms, s));
+        SCDA_TRY(product<false>(prod(dy1, w1, dx, C, F, split_out, nullptr,
+                                     g3, nullptr, false),
+                                split_b, dev, s));
     } else {
-      SCDA_TRY(gemm<false>(dy1, w1t + i * cf, next, M, C, F, H, W, nullptr,
-                           g3, xi(i), false, sms, s));
+      SCDA_TRY(product<false>(prod(dy1, w1 + i * cf, next, C, F, split_out,
+                                   nullptr, g3, xi(i), false),
+                              split_b, dev, s));
     }
   }
   return cudaSuccess;

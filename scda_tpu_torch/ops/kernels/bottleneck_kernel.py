@@ -24,14 +24,17 @@ what the JAX ``custom_vjp`` does (``bottleneck_kernel.py:297-325``): a
 remat of the chain in uniform f32 on the inputs and weights rounded to
 the forward's dtype (the linearisation point is the kernel's, the
 per-stage roundings are dropped), then the data and weight gradients
-block by block, last to first, in f32 FMAs with no atomics, so that two
-calls give the same bits.  It computes only the gradients autograd asks
-for (the folded biases come from frozen BatchNorm buffers and are never
+block by block, last to first, with no atomics, so that two calls give
+the same bits.  Every product runs on the tensor cores in split TF32
+(each f32 operand as hi + lo TF32 halves: two passes for the data
+products when the weights are bf16 values, three otherwise), at
+f32-class accuracy.  It computes only the gradients autograd asks for
+(the folded biases come from frozen BatchNorm buffers and are never
 asked for in the model).  Its plain twin,
 :func:`bottleneck_chain_bwd_plain`, is the same backward written out in
 plain torch; CPU tensors take it.  The remat holds every block's f32
 activations (about 12.6 MB a block at layer3, 512x1024, bs 1) until the
-call ends.
+call ends; :func:`chain_bwd_launcher` hands them back for checks.
 """
 
 from __future__ import annotations
@@ -198,6 +201,46 @@ WGRAD_MIN_ROWS = 256
 BIAS_CHUNK = 256
 
 
+# The data products (remat, dy2, dy1, dx) run in 64-row tiles, 128
+# columns wide where N allows (else 64).  A product with fewer tiles than
+# PRODUCT_BLOCKS (about one for each of the H100's 132 SMs) splits its K
+# range: the 3x3s into groups of whole taps, the 1x1s into channel ranges
+# of a multiple of 32; the partials are added in split order.  At layer3
+# at bs 1 (64 tiles) two splits of the 1x1 and three of the 3x3 were the
+# fastest (``kernel_probe k4bwd-phases``): more splits cost more in
+# partial sums than they gain in blocks.
+PRODUCT_BLOCKS = 128
+
+
+def product_tiles(m: int, n: int) -> int:
+    """Output tiles of a data product of ``m`` pixels and ``n`` columns."""
+    return -(-m // 64) * (n // (128 if n % 128 == 0 else 64))
+
+
+def product_splits(m: int, n: int, k: int, conv: bool = False) -> int:
+    """K splits of a data product: the fewest that give PRODUCT_BLOCKS
+    blocks, among 1, 3, 9 for a 3x3 (``k`` = 9 f) and the powers of two
+    that leave a multiple of 32 channels for a 1x1, else the most."""
+    valid = (1, 3, 9) if conv else [s for s in (1, 2, 4, 8)
+                                    if k % (32 * s) == 0]
+    tiles = product_tiles(m, n)
+    return next((s for s in valid if tiles * s >= PRODUCT_BLOCKS), valid[-1])
+
+
+def chain_bwd_splits(m: int, c: int, f: int):
+    """K splits of the reduce-side 1x1 products (remat y1, dy2: K = C, N
+    = F), the 3x3s (K = 9F, N = F) and the expand-side ones (remat x, dx:
+    K = F, N = C)."""
+    return (product_splits(m, f, c), product_splits(m, f, 9 * f, conv=True),
+            product_splits(m, c, f))
+
+
+def data_passes(dtype) -> int:
+    """TF32 passes of a data product: two when the weights are bf16
+    values (exact in TF32), three for f32 weights."""
+    return 2 if dtype == torch.bfloat16 else 3
+
+
 def wgrad_chunk(m: int, tiles: int) -> int:
     """Pixels per split of a weight gradient with ``tiles`` 64x64 output
     tiles over ``m`` pixels: a multiple of 16 (the kernel's slice)."""
@@ -221,15 +264,20 @@ def _rounded(x, ws, dtype):
 
 def chain_bwd_operands(x, ws, dtype):
     """The kernel's operands, contiguous f32: x and the six weights
-    rounded to ``dtype`` (the forward's layouts, for the remat and the
-    weight gradients), then the data gradients' weights as (K, N) with N
-    contiguous: w1t (N, F, C) and w3t (N, C, F) transposed, and w2r (N, 9,
-    F, F) with w2r[i, t, o, c] = w2[i, 8 - t, c, o], so that the 3x3's
-    transpose is the forward's implicit GEMM over the taps reversed."""
+    rounded to ``dtype`` in the inputs' layouts, then the weights of the
+    products packed as (out, in) with the reduction axis contiguous, the
+    only operand layout of TF32 ``wgmma``: for the remat w1t (N, F, C),
+    w2t (N, F, 9F) with w2t[i, o, t F + c] = w2[i, t, c, o], w3t (N, C,
+    F); for the data gradients w3 (N, F, C) and w1 (N, C, F) as they are
+    and w2r (N, F, 9F) with w2r[i, c, t F + o] = w2[i, 8 - t, c, o], so
+    that the 3x3's transpose is the forward's implicit GEMM over the taps
+    reversed.  Returns (x, w1, b1, w2, b2, w3, b3, w1t, w2t, w2r, w3t)."""
     xr, w1, b1, w2, b2, w3, b3 = (t.contiguous()
                                   for t in _rounded(x, ws, dtype))
+    n, _, f = w1.shape
     return (xr, w1, b1, w2, b2, w3, b3, w1.transpose(1, 2).contiguous(),
-            w2.flip(1).transpose(2, 3).contiguous(),
+            w2.permute(0, 3, 1, 2).reshape(n, f, 9 * f).contiguous(),
+            w2.flip(1).permute(0, 2, 1, 3).reshape(n, f, 9 * f).contiguous(),
             w3.transpose(1, 2).contiguous())
 
 
@@ -249,11 +297,9 @@ def chain_remat_plain(x, w1, b1, w2, b2, w3, b3):
 
 def chain_remat_kernel(x, w1, b1, w2, b2, w3, b3):
     """:func:`chain_remat_plain` from the forward kernel's f32 path on
-    CUDA tensors, one block a launch (its scratch then holds the block's
-    y1 and y2).  The backward kernel's remat sums every output in the
-    same order, so these are its activations bit for bit: what
-    :func:`bottleneck_chain_bwd_plain` takes as ``remat`` to be held to
-    the kernel at one linearisation point."""
+    CUDA tensors (CUDA-core FMAs, every output summed in k order), one
+    block a launch (its scratch then holds the block's y1 and y2): the
+    f32 chain that the backward kernel's split-TF32 remat is held to."""
     xs, y1s, y2s = [x], [], []
     for i in range(w1.shape[0]):
         launch = chain_launcher(xs[-1], *(t[i:i + 1] for t in (
@@ -262,6 +308,20 @@ def chain_remat_kernel(x, w1, b1, w2, b2, w3, b3):
         y1s.append(launch.scratch[0].clone())
         y2s.append(launch.scratch[1].clone())
     return xs, y1s, y2s
+
+
+def remat_gaps(remat, ref):
+    """Per map of two remats (xs, y1s, y2s): max |a - b| over the map's
+    largest magnitude in ``ref``, in the order x_0 .. x_N, y1_0 .., y2_0
+    ..; and how many relu gates (a > 0 against b > 0) differ in all."""
+    gaps, flips = [], 0
+    for a, b in zip((t for part in remat for t in part),
+                    (t for part in ref for t in part)):
+        top = float(b.abs().max())
+        gaps.append(float((a - b).abs().max()) / top if top > 0 else
+                    float((a - b).abs().max()))
+        flips += int(((a > 0) != (b > 0)).sum())
+    return gaps, flips
 
 
 def bottleneck_chain_bwd_plain(x, w1, b1, w2, b2, w3, b3, g, *,
@@ -308,6 +368,65 @@ def bottleneck_chain_bwd_plain(x, w1, b1, w2, b2, w3, b3, g, *,
     return tuple(t if need else None for t, need in zip(out, needs))
 
 
+def chain_bwd_launcher(x, w1, b1, w2, b2, w3, b3, g, *,
+                       dtype=torch.bfloat16, needs=ALL_GRADS):
+    """Pack the CUDA kernel's operands and allocate its workspace and
+    outputs once (CUDA tensors, C and F multiples of 64); returns a
+    function of no arguments that launches the backward and returns the
+    seven gradients (the same tensors at every launch; ``None`` where
+    ``needs`` says no).  ``launch.remat`` is the kernel's remat after a
+    launch, views of its workspace in the twin's ``remat=`` form (xs,
+    y1s, y2s), x_0 being x rounded to ``dtype``.
+    :func:`bottleneck_chain_bwd` launches it once; a caller that checks
+    the remat or times the launches alone keeps it."""
+    name = "scda_bottleneck_chain_bwd_f32"
+    if x.device.type != "cuda":
+        raise ValueError(f"bottleneck_chain_bwd: unsupported device "
+                         f"{x.device}")
+    b, h, w, c = x.shape
+    n, _, f = w1.shape
+    if c % 64 or f % 64:
+        raise ValueError(f"bottleneck_chain_bwd: the kernel needs C and F "
+                         f"multiples of 64, got C={c}, F={f}")
+    ops = chain_bwd_operands(x, (w1, b1, w2, b2, w3, b3), dtype)
+    # The C call's order: x, w1, b1, w2t, b2, w3, b3, w1t, w2r, w3t.
+    packed = ops[:3] + (ops[8],) + ops[4:8] + ops[9:]
+    gf = g.detach().float().contiguous()
+    m = b * h * w
+    chunks = (wgrad_chunk(m, (c // 64) * (f // 64)),
+              wgrad_chunk(m, 9 * (f // 64) ** 2), BIAS_CHUNK)
+    splits = chain_bwd_splits(m, c, f)
+    size = _build.function("scda_bottleneck_chain_bwd_workspace",
+                           [ctypes.c_int] * 12, ctypes.c_longlong)
+    work = torch.empty(size(b, h, w, c, f, n, *chunks, *splits),
+                       dtype=torch.float32, device=x.device)
+    outs = [torch.empty(t.shape, dtype=torch.float32, device=x.device)
+            if need else None
+            for t, need in zip((x, w1, b1, w2, b2, w3, b3), needs)]
+    fn = _build.function(name, [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13
+                         + [ctypes.c_void_p])
+
+    def launch():
+        with torch.cuda.device(x.device):
+            rc = fn(*(t.data_ptr() for t in packed), gf.data_ptr(),
+                    *(None if t is None else t.data_ptr() for t in outs),
+                    work.data_ptr(), b, h, w, c, f, n, *chunks, *splits,
+                    data_passes(dtype), _build.stream_ptr(x.device))
+        _build.check(rc, name)
+        bottleneck_chain_bwd.launches += 1
+        return tuple(outs)
+
+    mc, mf = m * c, m * f
+    xs = [ops[0]] + [work[i * mc:(i + 1) * mc].view(b, h, w, c)
+                     for i in range(n)]
+    y1s = [work[n * mc + i * mf:n * mc + (i + 1) * mf].view(b, h, w, f)
+           for i in range(n)]
+    y2s = [work[n * (mc + mf) + i * mf:n * (mc + mf) + (i + 1) * mf]
+           .view(b, h, w, f) for i in range(n)]
+    launch.remat = (xs, y1s, y2s)
+    return launch
+
+
 def bottleneck_chain_bwd(x, w1, b1, w2, b2, w3, b3, g, *,
                          dtype=torch.bfloat16, needs=ALL_GRADS):
     """The gradients of :func:`bottleneck_chain_fwd`'s inputs from the
@@ -336,37 +455,8 @@ def bottleneck_chain_bwd(x, w1, b1, w2, b2, w3, b3, g, *,
     if x.device.type == "cpu":
         return bottleneck_chain_bwd_plain(x, w1, b1, w2, b2, w3, b3, g,
                                           dtype=dtype, needs=needs)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    b, h, w, c = x.shape
-    n, _, f = w1.shape
-    if c % 64 or f % 64:
-        raise ValueError(f"{name}: the kernel needs C and F multiples of 64, "
-                         f"got C={c}, F={f}")
-
-    ops = chain_bwd_operands(x, (w1, b1, w2, b2, w3, b3), dtype)
-    gf = g.detach().float().contiguous()
-    m = b * h * w
-    chunks = (wgrad_chunk(m, (c // 64) * (f // 64)),
-              wgrad_chunk(m, 9 * (f // 64) ** 2), BIAS_CHUNK)
-    size = _build.function("scda_bottleneck_chain_bwd_workspace",
-                           [ctypes.c_int] * 9, ctypes.c_longlong)
-    work = torch.empty(size(b, h, w, c, f, n, *chunks), dtype=torch.float32,
-                       device=x.device)
-    outs = [torch.empty(t.shape, dtype=torch.float32, device=x.device)
-            if need else None
-            for t, need in zip((x, w1, b1, w2, b2, w3, b3), needs)]
-    fn = _build.function("scda_bottleneck_chain_bwd_f32",
-                         [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
-                         + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        rc = fn(*(t.data_ptr() for t in ops), gf.data_ptr(),
-                *(None if t is None else t.data_ptr() for t in outs),
-                work.data_ptr(), b, h, w, c, f, n, *chunks,
-                _build.stream_ptr(x.device))
-    _build.check(rc, "scda_bottleneck_chain_bwd_f32")
-    bottleneck_chain_bwd.launches += 1
-    return tuple(outs)
+    return chain_bwd_launcher(x, w1, b1, w2, b2, w3, b3, g, dtype=dtype,
+                              needs=needs)()
 
 
 class _BottleneckChain(torch.autograd.Function):

@@ -8,6 +8,7 @@ prints times that explain them.
     python -m scda_tpu_torch.utils.kernel_probe k3-phases
     python -m scda_tpu_torch.utils.kernel_probe k4
     python -m scda_tpu_torch.utils.kernel_probe k4bwd
+    python -m scda_tpu_torch.utils.kernel_probe k4bwd-phases
     python -m scda_tpu_torch.utils.kernel_probe peaks
 
 ``k1`` to ``k4`` time the kernels of this checkout at the shapes of the
@@ -27,9 +28,13 @@ scan walks the whole row).  ``k2`` takes its axis weights from
 ``roi_align_axis_weights`` on seeded rois, two samples per bin edge as
 on the paths, forward in bf16 and backward on an f32 cotangent.
 ``k4bwd`` times K4's backward at the three ResNet-101 stages and layer3
-at bs 8 with the gradients the model asks for (x, w1, w2, w3), beside its
-twin and the remat it replaced (the twin's forward in f32 under
-autograd), and says whether two launches gave the same bits.
+at bs 8 with the gradients the model asks for (x, w1, w2, w3): through
+its wrapper and launched alone on packed operands, beside its twin, the
+remat it replaced (the twin's forward in f32 under autograd) and its
+tensor-core bound (the split-TF32 passes it runs at 495 TFLOP/s); it
+prints the gap to the twin at the kernel's own remat, the remat's gap to
+the f32 forward kernel's chain, and whether two launches gave the same
+bits.
 
 ``k3-phases`` compiles copies of ``csrc/vgg_stem.cu`` with one phase of
 the bf16 kernel taken out (conv1_1's sums, conv1_2's taps, both) or with
@@ -292,23 +297,29 @@ def probe_k4bwd(device):
 
     gen = torch.Generator().manual_seed(0)
     needs = (True, True, False, True, False, True, False)   # the model's
+    passes = bk.data_passes(torch.bfloat16)
     for b, h, w, f, n, damp in STAGES + ((8, 32, 64, 256, 22, 0.1),):
         args = chain_inputs(gen, b, h, w, f, n, damp, device)
         g = torch.randn(args[0].shape, generator=gen).to(device, torch.bfloat16)
         kw = dict(dtype=torch.bfloat16, needs=needs)
-        out = bk.bottleneck_chain_bwd(*args, g, **kw)
-        again = bk.bottleneck_chain_bwd(*args, g, **kw)
-        ref = bk.bottleneck_chain_bwd_plain(*args, g, **kw)
+        launch = bk.chain_bwd_launcher(*args, g, **kw)
+        out = [None if t is None else t.clone() for t in launch()]
+        again = launch()
+        rounded = bk.chain_bwd_operands(args[0], args[1:], torch.bfloat16)[:7]
+        ref = bk.bottleneck_chain_bwd_plain(*rounded, g, remat=launch.remat,
+                                            **kw)
         rel = max(float((o - r).norm() / r.norm())
                   for o, r in zip(out, ref) if o is not None)
-        rounded = [t.detach().requires_grad_(need) for t, need in zip(
-            bk.chain_bwd_operands(args[0], args[1:], torch.bfloat16)[:7],
-            needs)]
+        gaps, flips = bk.remat_gaps(launch.remat,
+                                    bk.chain_remat_kernel(*rounded))
+        del ref
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(rounded, needs)]
 
         def remat():
-            y = bk.bottleneck_chain_plain(*rounded, dtype=torch.float32)
+            y = bk.bottleneck_chain_plain(*leaves, dtype=torch.float32)
             return torch.autograd.grad(
-                y, [t for t in rounded if t.requires_grad], g.float())
+                y, [t for t in leaves if t.requires_grad], g.float())
 
         call = lambda: bk.bottleneck_chain_bwd(*args, g, **kw)
         twin = lambda: bk.bottleneck_chain_bwd_plain(*args, g, **kw)
@@ -316,13 +327,146 @@ def probe_k4bwd(device):
                     if a is not None)
         with torch.enable_grad():
             remat_ms = time_ms(remat, repeats=3)
-        print(f"k4bwd x=({b},{h},{w},{4 * f}) F={f} N={n}: max rel err "
-              f"{rel:.3g} against the twin's own remat, two launches "
-              f"bit-equal {equal}, wrapper {time_ms(call, repeats=10):.4f} "
-              f"ms, twin {time_ms(twin, repeats=3):.4f} ms, remat under "
-              f"autograd {remat_ms:.4f} ms", flush=True)
-        for name, per_call, us in kernel_times(call, calls=3)[:5]:
+        m, c = b * h * w, 4 * f
+        fwd_flops = 2 * m * n * (2 * c * f + 9 * f * f)
+        bound_tc = (2 * passes + 3) * fwd_flops / 495e12 * 1e3
+        print(f"k4bwd x=({b},{h},{w},{c}) F={f} N={n}: TF32 passes {passes} "
+              f"a data product, 3 a weight gradient; max rel err {rel:.3g} "
+              f"against the twin at the kernel's own remat, remat gap "
+              f"{max(gaps):.3g} of the f32 forward chain ({flips} relu "
+              f"gates differ), two launches bit-equal {equal}, wrapper "
+              f"{time_ms(call, repeats=10):.4f} ms, kernel alone "
+              f"{time_ms(launch, repeats=10):.4f} ms, tensor-core bound "
+              f"{bound_tc:.4f} ms, twin {time_ms(twin, repeats=3):.4f} ms, "
+              f"remat under autograd {remat_ms:.4f} ms", flush=True)
+        for name, per_call, us in kernel_times(launch, calls=3)[:6]:
             print(f"    {name[:64]:64s} x{per_call:5.1f}  {us:7.2f} us")
+
+
+K4BWD_PROBE_ENTRIES = r"""
+extern "C" int probe_product(const float* a, const float* bt, float* out,
+                             float* part, int* counters, int M, int N, int K,
+                             int H, int W, int splits, int conv,
+                             void* stream) {
+  Product p = {a, bt, out, nullptr, nullptr, nullptr, part, counters,
+               M, N, K, H, W, splits, 1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return conv ? product<true>(p, false, 0, s) : product<false>(p, false, 0, s);
+}
+extern "C" int probe_wgrad(const float* a, const float* bm, float* out,
+                           float* part, int* counters, int M, int Ka, int Kb,
+                           int H, int W, int chunk, int shift, void* stream) {
+  Wgrad p = {a, bm, out, part, counters, M, Ka, Kb, H, W, chunk};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return shift ? wgrad<true>(p, 0, s) : wgrad<false>(p, 0, s);
+}
+"""
+
+
+def probe_k4bwd_phases(device):
+    """Layer3's products of K4's backward at bs 1, one launch each, from
+    copies of ``csrc/bottleneck_chain_bwd.cu`` with a phase compiled out:
+    the copies into shared memory, the TF32 split, the tensor-core
+    products.  The differences of device time (``torch.profiler``) say
+    what each phase costs; the event time around a single launch is
+    bounded by the host's launch below about 20 us."""
+    from scda_tpu_torch.ops.kernels import _build
+    from scda_tpu_torch.ops.kernels import bottleneck_kernel as bk
+
+    with open(os.path.join(_build.CSRC, "bottleneck_chain_bwd.cu")) as f:
+        src = f.read()
+
+    def sub(text, old, new, count):
+        if text.count(old) != count:
+            raise RuntimeError(f"bottleneck_chain_bwd.cu no longer has {count} "
+                               f"of {old!r}: bring kernel_probe.py up to date")
+        return text.replace(old, new)
+
+    src = sub(src, "wgmma_tile<BN>(tmp,", "if (PROBE_MMA) wgmma_tile<BN>(tmp,", 3)
+    src = sub(src, "wgmma_tile<64>(tmp,", "if (PROBE_MMA) wgmma_tile<64>(tmp,", 3)
+    src = sub(src, "split_slice(0);", "if (PROBE_SPLIT) split_slice(0);", 1)
+    src = sub(src, "split_slice((kt + 1) % kStages);",
+              "if (PROBE_SPLIT) split_slice((kt + 1) % kStages);", 1)
+    src = sub(src, "split_slice(0, 0);", "if (PROBE_SPLIT) split_slice(0, 0);", 1)
+    src = sub(src, "split_slice((kt + 1) & 1, (kt + 1) & 1);",
+              "if (PROBE_SPLIT) split_slice((kt + 1) & 1, (kt + 1) & 1);", 1)
+    src = sub(src, "      cp_async16(", "      if (PROBE_LOAD) cp_async16(", 4)
+    src += K4BWD_PROBE_ENTRIES
+    out_dir = os.path.join(_build.BUILD_DIR, "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    cu = os.path.join(out_dir, "bottleneck_chain_bwd_probe.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    variants = {"as shipped": (1, 1, 1), "no products": (0, 1, 1),
+                "no split": (1, 0, 1), "no copies": (1, 1, 0),
+                "copies only": (0, 0, 1), "nothing": (0, 0, 0)}
+    procs = {}
+    for name, (mma, split, load) in variants.items():
+        so = os.path.join(out_dir, "k4bwd_" + name.replace(" ", "_") + ".so")
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+             f"-DPROBE_MMA={mma}", f"-DPROBE_SPLIT={split}",
+             f"-DPROBE_LOAD={load}", "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the {name!r} variant:\n{log}")
+        libs[name] = ctypes.CDLL(so)
+    b, h, w, c, f = 1, 32, 64, 1024, 256
+    m = b * h * w
+    s_in, s_3x3, s_out = bk.chain_bwd_splits(m, c, f)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((m, c), generator=gen).to(device)
+    y = torch.randn((m, f), generator=gen).to(device)
+    w1t = torch.randn((f, c), generator=gen).to(device)
+    w3t = torch.randn((c, f), generator=gen).to(device)
+    w2t = torch.randn((f, 9 * f), generator=gen).to(device)
+    out = torch.empty((m, c), device=device)
+    dw = torch.empty((9 * f * f + c * f,), device=device)
+    part = torch.empty((16 * m * c,), device=device)
+    counters = torch.zeros((65536,), dtype=torch.int32, device=device)
+    cases = {
+        f"reduce 1x1 K={c} N={f} splits {s_in}":
+            ("product", (x, w1t, out, m, f, c, h, w, s_in, 0)),
+        f"3x3 K={9 * f} N={f} splits {s_3x3}":
+            ("product", (y, w2t, out, m, f, 9 * f, h, w, s_3x3, 1)),
+        f"expand 1x1 K={f} N={c} splits {s_out}":
+            ("product", (y, w3t, out, m, c, f, h, w, s_out, 0)),
+        f"wgrad 1x1 {f}x{c} chunk {bk.wgrad_chunk(m, (c // 64) * (f // 64))}":
+            ("wgrad", (y, x, dw, m, f, c, h, w,
+                       bk.wgrad_chunk(m, (c // 64) * (f // 64)), 0)),
+        f"wgrad 3x3 9x{f}x{f} chunk {bk.wgrad_chunk(m, 9 * (f // 64) ** 2)}":
+            ("wgrad", (y, y, dw, m, f, f, h, w,
+                       bk.wgrad_chunk(m, 9 * (f // 64) ** 2), 1)),
+    }
+    # The data products at other K splits, as shipped only.
+    for s3 in (1, 3, 9):
+        cases[f"3x3 K={9 * f} N={f} splits {s3} (as shipped only)"] = (
+            "product", (y, w2t, out, m, f, 9 * f, h, w, s3, 1))
+    for s1 in (1, 2, 4, 8):
+        cases[f"reduce 1x1 K={c} N={f} splits {s1} (as shipped only)"] = (
+            "product", (x, w1t, out, m, f, c, h, w, s1, 0))
+    for case, (kind, (a, bt, o, *ints)) in cases.items():
+        for name, lib in libs.items():
+            if "only" in case and name != "as shipped":
+                continue
+            fn = getattr(lib, f"probe_{kind}")
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+                ctypes.c_void_p]
+
+            def call():
+                rc = fn(a.data_ptr(), bt.data_ptr(), o.data_ptr(),
+                        part.data_ptr(), counters.data_ptr(), *ints,
+                        _build.stream_ptr(device))
+                if rc:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+
+            rows = kernel_times(call, calls=10)
+            print(f"k4bwd-phases {case:34s} {name:12s} device "
+                  f"{rows[0][2] / 1e3:.4f} ms a launch, with the host "
+                  f"{time_ms(call):.4f} ms", flush=True)
 
 
 def probe_k3_phases(device):
@@ -400,7 +544,7 @@ def probe_peaks(device):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("what", choices=("k1", "k2", "k3", "k3-phases", "k4",
-                                         "k4bwd", "peaks"))
+                                         "k4bwd", "k4bwd-phases", "peaks"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA device", file=sys.stderr)
@@ -415,6 +559,7 @@ def main(argv=None) -> int:
         {"k1": probe_k1, "k2": probe_k2, "k3": probe_k3,
          "k3-phases": probe_k3_phases,
          "k4": probe_k4, "k4bwd": probe_k4bwd,
+         "k4bwd-phases": probe_k4bwd_phases,
          "peaks": probe_peaks}[args.what](device)
     return 0
 

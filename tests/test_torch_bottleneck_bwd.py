@@ -8,15 +8,19 @@ against ``jax.vjp`` of ``chain_reference`` in f32 on maps too small for
 the Pallas kernel (H or W <= 3: every 3x3 tap meets the padding); against
 autograd through ``bottleneck_chain_plain``; each subset of ``needs``;
 the gradients of the conv kernels through the fold; and a torch model of
-what the kernel does differently from the twin (the packed weights of
-the data gradients, the 3x3's transpose as the forward's gather over the
-taps reversed, the weight and bias gradients as partial sums over splits
-of the pixel axis added in split order).
+what the kernel does differently from the twin (every product in split
+TF32, each f32 operand as hi + lo halves rounded as ``cvt.rna.tf32``
+rounds, two passes for the data products under bf16 and three under f32
+and for the weight gradients; the packed (out, in) weights; the 3x3's
+transpose as the forward's gather over the taps reversed; the K ranges
+of the data products and the pixel axis of the weight and bias
+gradients cut into splits whose partial sums are added in split order).
 
 Tolerances: rtol=atol=1e-4 against JAX (as the forward tests state it:
 f32 sums in another order, and the relu gates of one linearisation point
 on both sides); 1e-5 of each gradient's norm between the port's own f32
-computations.
+computations at one linearisation point; a remat within 1e-5 of each
+map's largest magnitude (the floor of ``chip_smoke.py``'s remat gate).
 """
 
 import itertools
@@ -212,10 +216,53 @@ def test_fold_conv_gradients_match_jax(rng, dtype):
 
 # ---- what the kernel does differently -----------------------------------
 
-def _splits(a, b, chunk):
+def _tf32(t):
+    """``cvt.rna.tf32.f32`` with the low 13 bits cleared: the f32 bits
+    rounded to 10 mantissa bits, nearest, ties away from zero (adding half
+    of the dropped unit to the magnitude's bits carries into the kept
+    ones exactly when the dropped part is at least half)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(t):
+    """(hi, lo): hi = tf32(t), lo = tf32(t - hi), as the kernel splits
+    each operand."""
+    hi = _tf32(t)
+    return hi, _tf32(t - hi)
+
+
+def _product(a, bt, splits, passes):
+    """a (M, K) . bt (N, K)^T as the kernel's data products sum it: the K
+    range in ``splits`` equal parts, each the sum of its TF32 passes (lo(a)
+    hi(b), under three passes hi(a) lo(b), then hi(a) hi(b)), the parts
+    added in split order."""
+    ah, al = _split(a)
+    bh, bl = _split(bt)
+    span = a.shape[1] // splits
+    total = None
+    for s in range(splits):
+        k = slice(s * span, (s + 1) * span)
+        part = al[:, k] @ bh[:, k].T
+        if passes == 3:
+            part = part + ah[:, k] @ bl[:, k].T
+        part = part + ah[:, k] @ bh[:, k].T
+        total = part if total is None else total + part
+    return total
+
+
+def _splits(a, b, chunk, tf32=False):
     """A^T B over the rows as the kernel sums it: one partial a split of
-    ``chunk`` rows, the partials added in split order."""
-    parts = [a[s:s + chunk].T @ b[s:s + chunk]
+    ``chunk`` rows, the partials added in split order; with ``tf32`` each
+    partial in the weight gradients' three passes (lo(a) hi(b), hi(a)
+    lo(b), hi(a) hi(b))."""
+    def part(x, y):
+        if not tf32:
+            return x.T @ y
+        (xh, xl), (yh, yl) = _split(x), _split(y)
+        return xl.T @ yh + xh.T @ yl + xh.T @ yh
+
+    parts = [part(a[s:s + chunk], b[s:s + chunk])
              for s in range(0, a.shape[0], chunk)]
     total = parts[0]
     for p in parts[1:]:
@@ -225,24 +272,29 @@ def _splits(a, b, chunk):
 
 def _kernel_model(x, ws, g, dtype):
     """A torch model of ``scda_bottleneck_chain_bwd_f32`` on the operands
-    the wrapper packs (``chain_bwd_operands``): the data gradients against
-    w3t, w1t and w2r as (K, N) products, the 3x3's transpose as the
-    forward's gather (taps in order, shift (dy, dx)) of dy2 against w2r,
-    the weight gradients through :func:`_splits` with ``wgrad_chunk``'s
-    splits, the biases' by ``BIAS_CHUNK`` rows.  The remat is the twin's."""
-    xr, w1, b1, w2, b2, w3, b3, w1t, w2r, w3t = bk.chain_bwd_operands(
+    the wrapper packs (``chain_bwd_operands``), in the kernel's split
+    TF32: the remat and the data gradients through :func:`_product`
+    against the packed (out, in) weights with ``chain_bwd_splits``'s K
+    splits and ``data_passes(dtype)`` passes (the 3x3s as the forward's
+    gather of the taps, its transpose over the taps reversed); the weight
+    gradients through :func:`_splits` in three passes with
+    ``wgrad_chunk``'s splits; the biases' by ``BIAS_CHUNK`` rows in f32.
+    Returns (the seven gradients, the remat (xs, y1s, y2s))."""
+    xr, w1, b1, w2, b2, w3, b3, w1t, w2t, w2r, w3t = bk.chain_bwd_operands(
         x, ws, dtype)
     b, h, w, c = x.shape
     n, _, f = w1.shape
     m = b * h * w
     c13 = bk.wgrad_chunk(m, (c // 64) * (f // 64))
     c2 = bk.wgrad_chunk(m, 9 * (f // 64) ** 2)
-    xs, y1s, y2s = bk.chain_remat_plain(xr, w1, b1, w2, b2, w3, b3)
+    s_in, s_3x3, s_out = bk.chain_bwd_splits(m, c, f)
+    passes = bk.data_passes(dtype)
 
     def flat(t):
         return t.reshape(m, -1)
 
-    def gather(t):     # (B, H, W, K) -> (M, 9K), the implicit GEMM's rows
+    def gather(t):     # (M, K) -> (M, 9K), the implicit GEMM's rows
+        t = t.reshape(b, h, w, -1)
         return flat(torch.cat([bk._shift(t, dy, dx) for dy, dx in bk.TAPS],
                               -1))
 
@@ -252,45 +304,104 @@ def _kernel_model(x, ws, g, dtype):
     def masked(v, y):
         return torch.where(flat(y) > 0, v, torch.zeros(()))
 
+    xs, y1s, y2s = [flat(xr)], [], []
+    for i in range(n):
+        y1 = torch.relu(_product(xs[-1], w1t[i], s_in, passes) + b1[i, 0])
+        y2 = torch.relu(_product(gather(y1), w2t[i], s_3x3, passes)
+                        + b2[i, 0])
+        xs.append(torch.relu(_product(y2, w3t[i], s_out, passes) + b3[i, 0]
+                             + xs[-1]))
+        y1s.append(y1)
+        y2s.append(y2)
+
     out = [[None] * n for _ in range(6)]
     g3 = masked(flat(g.float()), xs[n])
     for i in reversed(range(n)):
-        out[4][i] = _splits(flat(y2s[i]), g3, c13)
+        out[4][i] = _splits(y2s[i], g3, c13, tf32=True)
         out[5][i] = colsum(g3)
-        dy2 = masked(g3 @ w3t[i], y2s[i])
+        dy2 = masked(_product(g3, w3[i], s_in, passes), y2s[i])
         out[2][i] = torch.stack([
-            _splits(flat(bk._shift(y1s[i], dy, dx)), dy2, c2)
+            _splits(flat(bk._shift(y1s[i].reshape(b, h, w, f), dy, dx)),
+                    dy2, c2, tf32=True)
             for dy, dx in bk.TAPS])
         out[3][i] = colsum(dy2)
-        dy1 = masked(gather(dy2.reshape(b, h, w, f))
-                     @ w2r[i].reshape(9 * f, f), y1s[i])
-        out[0][i] = _splits(flat(xs[i]), dy1, c13)
+        dy1 = masked(_product(gather(dy2), w2r[i], s_3x3, passes), y1s[i])
+        out[0][i] = _splits(xs[i], dy1, c13, tf32=True)
         out[1][i] = colsum(dy1)
-        g3 = dy1 @ w1t[i] + g3
+        g3 = _product(dy1, w1[i], s_out, passes) + g3
         if i:
             g3 = masked(g3, xs[i])
-    return [g3.reshape(x.shape)] + [torch.stack(t) for t in out]
+    grads = [g3.reshape(x.shape)] + [torch.stack(t) for t in out]
+    remat = ([t.reshape(b, h, w, c) for t in xs],
+             [t.reshape(b, h, w, f) for t in y1s],
+             [t.reshape(b, h, w, f) for t in y2s])
+    return grads, remat
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,h,w,c,f,n", [
     (1, 16, 40, 64, 64, 2),      # 640 pixels: 2 splits, 3 bias splits
     (2, 9, 30, 128, 64, 1),      # 540 pixels, wider C
+    (1, 16, 32, 1024, 256, 2),   # layer3's widths: everything split
 ])
 def test_kernel_model_matches_the_twin(rng, b, h, w, c, f, n, dtype):
-    """The kernel's packing and split sums compute the twin's function:
-    1e-5 of each gradient's norm (only f32 summation order differs)."""
+    """The kernel's split-TF32 products, packing and split sums compute
+    the twin's function: at the model's own remat, 1e-5 of each
+    gradient's norm (only the TF32 halves' last bits and the f32
+    summation order differ); the model's remat within 1e-5 of each map's
+    largest magnitude of the twin's f32 remat."""
     x, ws, g = _case(rng, b, h, w, c, f, n)
     m = b * h * w
     assert bk.wgrad_chunk(m, (c // 64) * (f // 64)) < m   # several splits
     tdt = getattr(torch, dtype)
     args = [torch.from_numpy(a) for a in (x, *ws)]
     gt = torch.from_numpy(g).to(tdt)
-    model = _kernel_model(args[0], args[1:], gt, tdt)
-    twin = bk.bottleneck_chain_bwd_plain(*args, gt, dtype=tdt)
+    model, remat = _kernel_model(args[0], args[1:], gt, tdt)
+    rounded = bk.chain_bwd_operands(args[0], args[1:], tdt)[:7]
+    twin = bk.bottleneck_chain_bwd_plain(*args, gt, dtype=tdt, remat=remat)
     for name, a, ref in zip(NAMES, model, twin):
         assert a.shape == ref.shape
         assert _rel(a, ref) <= 1e-5, name
+    gaps, _ = bk.remat_gaps(remat, bk.chain_remat_plain(*rounded))
+    assert max(gaps) <= 1e-5, gaps
+
+
+def test_tf32_split_is_exact_for_bf16_and_keeps_22_bits(rng):
+    """The splitter: bf16 values are TF32 values, so their lo is 0 (two
+    passes suffice for the data products under bf16); an f32 value is hi
+    + lo within 2^-22 of itself; hi and lo have their low 13 bits clear;
+    ties round away from zero."""
+    v = torch.from_numpy(rng.randn(4096).astype(np.float32) * 10.0 ** (
+        rng.randint(-8, 8, 4096)))
+    hi, lo = _split(v.bfloat16().float())
+    assert torch.equal(hi, v.bfloat16().float()) and not lo.any()
+    hi, lo = _split(v)
+    assert ((hi + lo - v).abs() <= 2.0 ** -22 * v.abs()).all()
+    assert not ((hi.view(torch.int32) | lo.view(torch.int32)) & 0x1FFF).any()
+    ties = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11])
+    assert _tf32(ties).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                    1 + 2 * 2 ** -10]
+
+
+@pytest.mark.parametrize("m,c,f,want", [
+    (2048, 1024, 256, (2, 3, 1)),        # layer3, bs 1
+    (8192, 512, 128, (1, 1, 1)),         # layer2, bs 1: 128 tiles
+    (16384, 1024, 256, (1, 1, 1)),       # layer3, bs 8: enough tiles
+    (6, 256, 64, (8, 9, 2)),             # one row tile: every split
+])
+def test_product_splits(m, c, f, want):
+    """The data products' K splits: the fewest of 1, 3, 9 tap groups (the
+    3x3s) or powers of two leaving a multiple of 32 channels (the 1x1s)
+    that give PRODUCT_BLOCKS blocks, else the most; layer3 at bs 1 has 64
+    tiles of its F-wide products, so two and three splits."""
+    got = bk.chain_bwd_splits(m, c, f)
+    assert got == want
+    for (n, k, conv), s in zip(((f, c, False), (f, 9 * f, True),
+                                (c, f, False)), got):
+        assert k % s == 0 and (k // s) % 32 == 0
+        assert (bk.product_tiles(m, n) * s >= bk.PRODUCT_BLOCKS
+                or s == max((1, 3, 9) if conv else
+                            [v for v in (1, 2, 4, 8) if k % (32 * v) == 0]))
 
 
 @pytest.mark.parametrize("m,c,f", [
@@ -387,9 +498,10 @@ def test_autograd_asks_for_the_gradients_that_need_it(rng, monkeypatch):
 
 def test_profile_names_the_backward_kernels():
     """The profiler's summary counts the backward's launches as K4's
-    backward, not as a library GEMM (their names hold ``gemm``)."""
-    rows = [("void (anonymous namespace)::chain_bwd_gemm_kernel<true>(float "
-             "const*)", 4, 1.0),
+    backward, not as a library GEMM (the weight gradients' names hold
+    ``wgrad``)."""
+    rows = [("void (anonymous namespace)::chain_bwd_wgmma_kernel<true, 128, "
+             "false>((anonymous namespace)::Product)", 4, 1.0),
             ("void (anonymous namespace)::chain_bwd_wgrad_kernel<false>("
              "float const*)", 2, 0.5),
             ("(anonymous namespace)::chain_bwd_sum_splits_kernel(float "
@@ -426,3 +538,24 @@ def test_chip_smoke_bounds_the_backward_in_f32():
     assert 4.4 < out["bound_ms"] < 4.6
     assert out["bound_bf16_ms"] == pytest.approx(
         2 * fwd["flops"] / chip_smoke.PEAK_BF16_FLOPS * 1e3)
+
+
+def test_chip_smoke_bounds_the_backward_on_tensor_cores():
+    """``bound_tc_ms``: the split-TF32 passes the kernel runs at the TF32
+    peak, (2 remat + 2 data gradients + 3 weight gradients) times the
+    forward's operations under bf16 (three passes for the data products
+    under f32, no weight gradients when no weight trains); layer3 at bs
+    1 needs about 1.4 ms."""
+    import chip_smoke
+
+    x = torch.zeros(1, 32, 64, 1024, dtype=torch.bfloat16)
+    w1 = torch.zeros(22, 1024, 256)
+    fwd = chip_smoke.chain_bound(x, w1)["flops"]
+    tc = fwd / chip_smoke.PEAK_TF32_FLOPS * 1e3
+    assert chip_smoke.chain_bwd_bound(x, w1)["bound_tc_ms"] == pytest.approx(
+        7 * tc)
+    assert 1.35 < 7 * tc < 1.45
+    assert chip_smoke.chain_bwd_bound(x.float(), w1)["bound_tc_ms"] == (
+        pytest.approx(9 * tc))
+    assert chip_smoke.chain_bwd_bound(x, w1, weights=False)[
+        "bound_tc_ms"] == pytest.approx(4 * tc)

@@ -501,18 +501,31 @@ def test_bottleneck_chain_autograd_on_card(cuda, dtype):
         torch.testing.assert_close(t.grad, ref.grad, rtol=1e-4, atol=1e-4)
 
 
+# chip_smoke.py's remat gate: per map, max |d| over the map's largest
+# magnitude at most max(REMAT_FLOOR, PERTURB_FACTOR x the twin's own
+# remat's gap from the f32 forward kernel's chain).
+REMAT_FLOOR = 1e-5
+PERTURB_FACTOR = 4.0
+
+
 def _chain_bwd_gap(args, cot, dtype, needs=bottleneck_kernel.ALL_GRADS):
-    """K4's backward kernel and its twin linearised at the forward
-    kernel's activations: (kernel grads, per-gradient ||k - p|| / ||p||)."""
+    """K4's backward kernel, its twin linearised at the kernel's own remat
+    (the launcher's views of its workspace), and that remat against the
+    f32 forward kernel's chain: (kernel grads, per-gradient ||k - p|| /
+    ||p||, per-map remat gaps, their bounds)."""
     bk = bottleneck_kernel
-    out = bk.bottleneck_chain_bwd(*args, cot, dtype=dtype, needs=needs)
+    launch = bk.chain_bwd_launcher(*args, cot, dtype=dtype, needs=needs)
+    out = launch()
     rounded = bk.chain_bwd_operands(args[0], args[1:], dtype)[:7]
     ref = bk.bottleneck_chain_bwd_plain(*rounded, cot, dtype=torch.float32,
-                                        needs=needs,
-                                        remat=bk.chain_remat_kernel(*rounded))
+                                        needs=needs, remat=launch.remat)
     gaps = [None if o is None else float((o - r).norm() / r.norm())
             for o, r in zip(out, ref)]
-    return out, gaps
+    fwd = bk.chain_remat_kernel(*rounded)
+    remat_gaps, _ = bk.remat_gaps(launch.remat, fwd)
+    twin_gaps, _ = bk.remat_gaps(bk.chain_remat_plain(*rounded), fwd)
+    bounds = [max(REMAT_FLOOR, PERTURB_FACTOR * v) for v in twin_gaps]
+    return out, gaps, remat_gaps, bounds
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -524,19 +537,21 @@ def test_bottleneck_chain_bwd_kernel_matches_twin(cuda, dtype, b, h, w, f,
                                                   n):
     """Ragged maps (M not a multiple of the 64-row tile; every 3x3 tap at
     the padding where H or W <= 3): all seven gradients against the twin
-    linearised at the f32 forward kernel's activations (the backward's
-    remat sums in the same order, so both see the same relu gates),
-    ||k - p|| <= 1e-4 ||p||."""
+    linearised at the kernel's own remat (both see the same relu gates),
+    ||k - p|| <= 1e-4 ||p||; the remat within the remat gate of the f32
+    forward kernel's chain."""
     c = 4 * f
     g = torch.Generator().manual_seed(h * w + f + n)
     x = torch.relu(torch.randn((b, h, w, c), generator=g)).to(cuda)
     ws = _chain_weights(g, n, c, f, cuda)
     cot = torch.randn((b, h, w, c), generator=g).to(cuda, dtype)
-    out, gaps = _chain_bwd_gap((x, *ws), cot, dtype)
+    out, gaps, remat_gaps, bounds = _chain_bwd_gap((x, *ws), cot, dtype)
     assert all(o.dtype == torch.float32 and o.shape == t.shape
                for o, t in zip(out, (x, *ws)))
     assert all(bool(torch.isfinite(o).all()) for o in out)
     assert max(gaps) <= 1e-4, gaps
+    assert all(a <= b for a, b in zip(remat_gaps, bounds)), (remat_gaps,
+                                                              bounds)
 
 
 @pytest.mark.parametrize("b,h,w,f,n,damp", [
@@ -547,8 +562,8 @@ def test_bottleneck_chain_bwd_kernel_at_the_path_shapes(cuda, b, h, w, f, n,
                                                         damp):
     """layer2 and layer3 of ResNet-101 at 512x1024, bs 1 and 8, bf16
     forward, the gradients the model asks for (x, w1, w2, w3): within
-    1e-4 of each norm of the twin at the forward kernel's activations,
-    and two launches bit-equal."""
+    1e-4 of each norm of the twin at the kernel's own remat, the remat
+    within the remat gate, and two launches bit-equal."""
     c = 4 * f
     g = torch.Generator().manual_seed(b + f + n)
     x = torch.relu(torch.randn((b, h, w, c), generator=g)).to(
@@ -556,9 +571,12 @@ def test_bottleneck_chain_bwd_kernel_at_the_path_shapes(cuda, b, h, w, f, n,
     ws = _chain_weights(g, n, c, f, cuda, damp)
     cot = torch.randn((b, h, w, c), generator=g).to(cuda, torch.bfloat16)
     needs = (True, True, False, True, False, True, False)
-    out, gaps = _chain_bwd_gap((x, *ws), cot, torch.bfloat16, needs)
+    out, gaps, remat_gaps, bounds = _chain_bwd_gap((x, *ws), cot,
+                                                   torch.bfloat16, needs)
     assert [o is None for o in out] == [not v for v in needs]
     assert max(v for v in gaps if v is not None) <= 1e-4, gaps
+    assert all(a <= b for a, b in zip(remat_gaps, bounds)), (remat_gaps,
+                                                              bounds)
     again = bottleneck_kernel.bottleneck_chain_bwd(
         x, *ws, cot, dtype=torch.bfloat16, needs=needs)
     assert all(torch.equal(a, o) for a, o in zip(again, out) if o is not None)

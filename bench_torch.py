@@ -87,7 +87,7 @@ from scda_tpu_torch.evals.detect import (
     bf16_inference_params, detection_match_rate,
 )
 from scda_tpu_torch.models import detector
-from scda_tpu_torch.models.faster_rcnn import build_model, init_weights
+from scda_tpu_torch.models.faster_rcnn import empty_model, init_weights
 from scda_tpu_torch.ops.kernels import plain_twins
 from scda_tpu_torch.train.state import create_train_state
 from scda_tpu_torch.train.steps import (
@@ -259,14 +259,16 @@ class Workload:
 
 def seeded_weights(cfg: Config, he_heads: bool) -> Dict[str, torch.Tensor]:
     """The port's seeded f32 weights for ``cfg.model``, on the CPU."""
-    model = build_model(cfg.model, cfg.anchors.num_anchors, device="cpu")
+    model = empty_model(cfg.model, cfg.anchors.num_anchors, device="cpu")
     init_weights(model, torch.Generator().manual_seed(WEIGHT_SEED),
                  input_scale=1.0 / 64, he_heads=he_heads)
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
 def model_from(cfg: Config, weights, device):
-    model = build_model(cfg.model, cfg.anchors.num_anchors, device=device)
+    """``cfg.model`` on ``device`` holding ``weights`` (every tensor: the
+    load is strict, so the model needs no init of its own)."""
+    model = empty_model(cfg.model, cfg.anchors.num_anchors, device=device)
     model.load_state_dict(weights)
     return model
 
@@ -352,16 +354,20 @@ def on_device(batches, device, fields=4):
 
 
 def serving(cfg: Config, batch_size: int, device, classes=None,
-            inputs: Optional[int] = None) -> Workload:
+            inputs: Optional[int] = None, weights=None,
+            batches=None) -> Workload:
     """bf16 serving through ``forward_inference`` on ``inputs`` distinct
-    batches (seed 1; ``SERVING_INPUTS`` by default)."""
-    weights = seeded_weights(cfg, he_heads=True)
+    batches (seed 1; ``SERVING_INPUTS`` by default).  An A/B hands every
+    arm the same ``weights`` and device ``batches``."""
+    if weights is None:
+        weights = seeded_weights(cfg, he_heads=True)
     model = model_from(cfg, weights, device)
     if cfg.test.bf16_weights:
         bf16_inference_params(model)
-    batches = on_device(structured_batches(
-        cfg, inputs or SERVING_INPUTS, batch_size, seed=1, classes=classes),
-        device, 2)
+    if batches is None:
+        batches = on_device(structured_batches(
+            cfg, inputs or SERVING_INPUTS, batch_size, seed=1,
+            classes=classes), device, 2)
 
     def unit(i):
         return detector.forward_inference(model, *batches[i % len(batches)],
@@ -515,6 +521,97 @@ def measure(w: Workload, device, iters: Optional[int] = None,
                                / float(np.median(samples)))
     return {"samples": samples, "iters": iters, "setup_s": setup_s,
             "check": check, "peak_mem_gb": peak, "profile": profile}
+
+
+def serving_ab(name: str, device, arms, *, iters: Optional[int] = None,
+               repeats: int = REPEATS, inputs: Optional[int] = None) -> list:
+    """An end-to-end A/B of the serving config ``name``: one set of seeded
+    weights and inputs for every arm; per arm ``(label, cfg_hook, swap)``
+    the workload of ``cfg_hook(config_for(name))`` measured as the bench
+    measures it (windows, profiler pass) inside ``swap()``, and the f32
+    detections of the first input batch.  The arms' agreement
+    (:func:`ab_agreement`, on those detections) stands in for the bench's
+    per-config check.  Returns one dict per arm: img/s (median and spread
+    of the windows; the host moves it), device ms per image (the profiler
+    pass; the stable reading), and the first unit's bf16 and the f32
+    detections (on the CPU)."""
+    spec = SPECS[name]
+    if spec.kind != "serve":
+        raise ValueError(f"{name} is not a serving config")
+    bs = spec.batch_size
+    base = config_for(name)
+    cfgs = [hook(base) if hook else base for _, hook, _ in arms]
+    weights = seeded_weights(cfgs[0], he_heads=True)
+    batches = on_device(structured_batches(
+        cfgs[0], inputs or SERVING_INPUTS, bs, seed=1), device, 2)
+    out = []
+    for (label, _, swap), cfg in zip(arms, cfgs):
+        t0 = time.perf_counter()
+        with (swap or contextlib.nullcontext)():
+            w = dataclasses.replace(
+                serving(cfg, bs, device, weights=weights, batches=batches),
+                check=lambda first: None)
+            m = measure(w, device, iters, repeats)
+            bf16 = w.unit(0)
+            cfg32 = f32(cfg)
+            with torch.no_grad():
+                dets32 = detector.forward_inference(
+                    model_from(cfg32, weights, device), *batches[0], cfg32)
+        profile = m["profile"] or {}
+        per_unit = profile.get("device_ms_per_unit")
+        out.append({
+            "arm": label, "config": name, "batch_size": bs,
+            "img_per_s": float(np.median(m["samples"])),
+            "spread": [min(m["samples"]), max(m["samples"])],
+            "samples": m["samples"], "iters": m["iters"],
+            "device_ms_per_image": None if per_unit is None else per_unit / bs,
+            "device_busy_share": profile.get("device_busy_share"),
+            "wall_s": time.perf_counter() - t0,
+            "bf16": _to_cpu(bf16), "f32": _to_cpu(dets32)})
+        w = None
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def ab_agreement(arms, what: str) -> dict:
+    """Prints one line per arm of :func:`serving_ab`, then the arms'
+    agreement, and raises when they disagree: the f32 detections of
+    every arm against the first's (>= ``MATCH_MIN`` matched, the bar the
+    card meets against the CPU), the bf16 ones reported, each arm's bf16
+    detections finite with at least one valid."""
+    for a in arms:
+        print(json.dumps({k: v for k, v in a.items()
+                          if k not in ("bf16", "f32")}), flush=True)
+    first = arms[0]
+    agree = []
+    for a in arms[1:]:
+        rate32, n_a, n_b = detection_match_rate(first["f32"], a["f32"])
+        rate16 = detection_match_rate(first["bf16"], a["bf16"])[0]
+        agree.append({"arms": [first["arm"], a["arm"]],
+                      "f32_match_rate": rate32, "f32_dets": [n_a, n_b],
+                      "bf16_match_rate": rate16})
+    dets_ok = all(int(a["bf16"].valid.sum()) >= 1
+                  and bool(torch.isfinite(a["bf16"].boxes).all())
+                  and bool(torch.isfinite(a["bf16"].scores).all())
+                  for a in arms)
+    out = {"ab": what, "config": first["config"],
+           "batch_size": first["batch_size"],
+           "img_per_s": [a["img_per_s"] for a in arms],
+           "device_ms_per_image": [a["device_ms_per_image"] for a in arms],
+           "arms": [a["arm"] for a in arms], "agreement": agree,
+           "bf16_dets_valid_finite": dets_ok,
+           "min_f32_match_rate": MATCH_MIN}
+    print(json.dumps(out), flush=True)
+    bad = [g for g in agree if not g["f32_match_rate"]
+           >= MATCH_MIN or min(g["f32_dets"]) < 1]
+    if bad or not dets_ok:
+        raise RuntimeError(f"{what} A/B: the arms disagree: {out}")
+    return out
+
+
+def _to_cpu(dets):
+    return type(dets)(*(t.detach().cpu() for t in dets))
 
 
 def record(name: str, w: Workload, m: dict, card: dict, cuda: bool) -> dict:

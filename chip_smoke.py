@@ -94,7 +94,24 @@ non-zero:
      class (``--synth_classes car``), a class-agnostic box head, the
      SCDA arms alternating D/G updates, seeds 3-5, 32 val scenes, the
      A/B's gates; its SCDA arm at seed 3 runs twice with equal logged
-     metrics, checkpoints and mAPs; the JAX package's numbers beside.
+     metrics, checkpoints and mAPs; the JAX package's numbers beside;
+ 11. protocols — the paper's runbooks of ``scripts_torch/``, each in a
+     process of its own: ``fidelity_foggy.sh`` and ``fidelity_sim10k.sh``
+     in their ``SCDA_FIDELITY_SMOKE=1`` mode from a seeded conv-only
+     caffe-layout ``.pth``, and ``scda_kitti_ab.sh`` as written (KITTI
+     geometry: 192x640 source scenes on a 256x640 canvas; the source loss
+     halves, both arms' clean mAP >= 0.20); meanwhile ``align_legacy`` at
+     full width (the surface weights exported to the reference layout by
+     ``export_torch.py``; ``test_net --torch_checkpoint`` equal to
+     ``--load_dir``, f32 card vs CPU) and a step and a forward at the
+     fidelity smoke's and the KITTI configs; then each kernel against
+     its twin on those inputs (K2 on legacy weights, K1/K2/K3 at 64x96
+     and 256x640), with times; and the export round trip under
+     ``align``;
+ 12. tools   — ``scripts_torch/loader_bench.py`` at its defaults beside
+     the VGG16 train bs 8 img/s of phase 5, the K4 A/B
+     (``bottleneck_ab.py``) and the ``ms_proj_after_pool`` A/B
+     (``ms_proj_ab.py``) with the arms' detections agreeing.
 
 Every process-wide setting comes from ``set_card_numerics()``
 (``scda_tpu_torch/utils/numerics.py``), called before the build: TF32
@@ -110,7 +127,7 @@ The last lines are the ``nvidia-smi`` line, the kernels summary and
 ``{"ok": true, "device": {...}}``.  While working on one path,
 ``python3 chip_smoke.py --only vgg16_scda`` (a comma-separated subset of
 ``vgg16,res101_ms,vgg16_train,res101_ms_train,vgg16_scda,vgg16_surface,
-bench_batches,learning,car``) runs just
+bench_batches,learning,car,protocols,tools``) runs just
 that and ends with ``{"ok": false, "partial": [...]}``: only the run
 with no arguments is the check.  It imports nothing of JAX and nothing
 of the JAX package.
@@ -123,6 +140,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -200,6 +218,47 @@ PROTOCOLS = {
 }
 RERUN_STEPS = 5              # the runs-twice gates of the train paths
 RES_SCDA_STEPS = 20
+# The protocols path: the port's runbooks (scripts_torch/), each run as
+# a user runs it, in a process of its own.  What the in-process checks
+# give cli.trainval: the fidelity runbooks' SCDA_FIDELITY_SMOKE source
+# run, and scda_kitti_ab.sh's COMMON flags and SCDA arm (a CPU test
+# holds each to its script).
+FIDELITY_SCRIPTS = ("scripts_torch/fidelity_foggy.sh",
+                    "scripts_torch/fidelity_sim10k.sh")
+FIDELITY_SMOKE = ["--net", "vgg16", "--bs", "1", "--num_devices", "1",
+                  "--dataset", "synthetic", "--synth_images", "4",
+                  "--synth_size", "64", "96", "--steps", "2",
+                  "--disp_interval", "1",
+                  "--set", "model.pooling_mode", "align_legacy",
+                  "train.proposal.pre_nms_top_n", "128",
+                  "train.proposal.post_nms_top_n", "32",
+                  "train.rpn_target.batch_size", "32",
+                  "train.roi_target.batch_size", "16",
+                  "adapt.mining_top_n", "16", "adapt.num_groups", "4",
+                  "test.proposal.pre_nms_top_n", "128",
+                  "test.proposal.post_nms_top_n", "32",
+                  "data.max_gt_boxes", "8", "anchors.scales", "1 2 4"]
+KITTI_SCRIPT = "scripts_torch/scda_kitti_ab.sh"
+KITTI_COMMON = ["--dataset", "synthetic", "--net", "vgg16", "--bs", "1",
+                "--synth_images", "16", "--synth_classes", "car",
+                "--num_devices", "1", "--synth_size", "256", "640",
+                "--synth_src_size", "192", "640",
+                "--set", "model.class_agnostic", "True"]
+KITTI_SCDA = ["--adapt", "--synth_fog", "0.3",
+              "--cfg_file", "cfgs/scda_kitti_car.yml",
+              "--set", "model.class_agnostic", "True"]
+KITTI_EVALS = (("ctrl", "0.0"), ("ctrl", "0.3"), ("scda", "0.0"),
+               ("scda", "0.3"))   # the script's order of test_net calls
+SCRIPT_TIMEOUT = 900
+# align_legacy at full width: test_net on the surface path's weights,
+# whose class list (Cityscapes') the fixture draws.
+LEGACY_CLASSES = ("person,rider,car,truck,bus,train,motorcycle,bicycle")
+# The tools path's A/Bs, cut from bench_torch.py's 100 (bs 1) and 40
+# (bs 8) units x 5 windows to keep chip_smoke.py in its time: units per
+# window by batch size, and windows.
+AB_ITERS = {1: 20, 8: 5}
+AB_REPEATS = 3
+AB_INPUTS = {1: 8, 8: 2}      # distinct input batches (the bench's: 8)
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
 # sheet): the yardstick of every ``bound_ms`` below.
 PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 operands
@@ -355,35 +414,6 @@ def stem_library(torch, x, k1, b1, k2, b2):
     return run, lambda y: y.permute(0, 2, 3, 1)
 
 
-def chain_library(torch, x, w1, b1, w2, b2, w3, b3):
-    """K4's yardstick: the eager chain of folded ``F.conv2d`` (1x1, 3x3
-    pad 1, 1x1) with relu and the residual add, channels_last bf16."""
-    import torch.nn.functional as F
-
-    bf = torch.bfloat16
-    n, c, f = w1.shape
-
-    def cl(t):
-        return t.to(bf).contiguous(memory_format=torch.channels_last)
-
-    xc = cl(x.permute(0, 3, 1, 2))
-    k1 = [cl(w1[i].t().reshape(f, c, 1, 1)) for i in range(n)]
-    k2 = [cl(w2[i].reshape(3, 3, f, f).permute(3, 2, 0, 1)) for i in range(n)]
-    k3 = [cl(w3[i].t().reshape(c, f, 1, 1)) for i in range(n)]
-    c1, c2, c3 = ([b[i].reshape(-1).to(bf) for i in range(n)]
-                  for b in (b1, b2, b3))
-
-    def run():
-        y = xc
-        for i in range(n):
-            t = torch.relu(F.conv2d(y, k1[i], c1[i]))
-            t = torch.relu(F.conv2d(t, k2[i], c2[i], padding=1))
-            y = torch.relu(F.conv2d(t, k3[i], c3[i]) + y)
-        return y
-
-    return run, lambda y: y.permute(0, 2, 3, 1)
-
-
 def graph_ms(torch, fn, repeats: int) -> float:
     """Median device time of ``fn()`` replayed from a CUDA graph: what
     its launches take when the host's issue rate is out of the way."""
@@ -498,6 +528,7 @@ class Port:
     """The port's modules, imported once the device check has passed."""
 
     def __init__(self, torch):
+        from scda_tpu_torch import bridge
         from scda_tpu_torch.adapt import scda
         from scda_tpu_torch.config import config_from_yaml, get_config, replace_path
         from scda_tpu_torch.core.kmeans import kmeans
@@ -539,10 +570,13 @@ class Port:
         self.init_params = init_params
         self.nms, self.roi_ops = nms, roi_ops
         self.demo, self.test_net, self.mesh = demo, test_net, mesh
-        self.trainval = trainval
+        self.trainval, self.bridge = trainval, bridge
         self.steps, self.flops = steps, flops
         self.bk, self.nk, self.rk, self.sk = (
             bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel)
+        # Each train path's median img/s in this run (``train_run``): the
+        # tools path prints the loader's rates beside VGG16's at bs 8.
+        self.run_rates = {}
         self.wrappers = {"nms": nms_kernel.nms_sorted,
                          "roi_align": roi_align_kernel.roi_align_contract,
                          "roi_align_bwd": roi_align_kernel.roi_align_contract_bwd,
@@ -818,7 +852,9 @@ class Port:
         """K4 in bf16 on one stage's inputs: the wrapper, its launches
         alone (weights packed once; ``ms`` also packs them on every call),
         eager and from a CUDA graph, its twin, its bound and the cuDNN
-        yardstick."""
+        yardstick (``utils/kernel_probe.py:cudnn_chain``)."""
+        from scda_tpu_torch.utils.kernel_probe import cudnn_chain
+
         torch = self.torch
         x, w1 = args[0], args[1]
         bf = torch.bfloat16
@@ -834,7 +870,7 @@ class Port:
             "plain_ms": time_ms(torch, lambda: self.bk.bottleneck_chain_plain(
                 *args, dtype=bf), 5),
             **chain_bound(x, w1),
-            **library_times(torch, *chain_library(torch, *args), p_out,
+            **library_times(torch, *cudnn_chain(*args), p_out,
                             f"K4 {label}")}
 
     def check_chain_bwd(self, args, dtype, label, seed):
@@ -1101,6 +1137,7 @@ class Port:
               "launches": launches,
               "launches_per_step": {k: v / steps for k, v in launches.items()},
               "peak_mem_bytes": peak})
+        self.run_rates[path] = median(rates)
         finite = all(math.isfinite(v) for d in losses.values()
                      for v in d.values())
         require(finite, f"{path}: non-finite losses {losses}")
@@ -3238,6 +3275,494 @@ def car_path(port, device, frames):
     return {}, {"car": launches}
 
 
+# ---- the protocols and tools paths: the port's scripts_torch/ ---------
+
+
+class Scripts:
+    """Runbooks of ``scripts_torch/`` started as a user starts them
+    (``bash <script>``, from the checkout, ``SCDA_TORCH_DEVICE`` unset so
+    that the card is the scripts' own default), each in a process group
+    of its own with its own ``TMPDIR`` and its output in a log; ``python``
+    is this interpreter.  :meth:`wait` collects them and
+    :meth:`stop` ends whatever still runs."""
+
+    def __init__(self, root):
+        self.root, self.procs = root, {}
+        shim = os.path.join(root, "bin")
+        os.makedirs(shim)
+        with open(os.path.join(shim, "python"), "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(os.path.join(shim, "python"), 0o755)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {k: v for k, v in os.environ.items()
+               if k != "SCDA_TORCH_DEVICE"}
+        env["PATH"] = shim + os.pathsep + env.get("PATH", "")
+        env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+        self.here, self.env = here, env
+
+    def start(self, name, script, *args, **env):
+        tmp = os.path.join(self.root, f"{name}_tmp")
+        os.makedirs(tmp)
+        log = open(os.path.join(self.root, f"{name}.log"), "w")
+        proc = subprocess.Popen(
+            ["bash", os.path.join(self.here, script), *args], cwd=self.here,
+            env={**self.env, "TMPDIR": tmp, **env}, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        self.procs[name] = (proc, log, time.perf_counter(), script)
+
+    def wait(self, name):
+        """(output, seconds) of one script, which must exit 0 (its
+        output's tail goes to standard error if it does not)."""
+        proc, log, t0, script = self.procs.pop(name)
+        try:
+            rc = proc.wait(timeout=SCRIPT_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            rc = proc.wait()
+        seconds = time.perf_counter() - t0
+        log.close()
+        with open(log.name) as f:
+            text = f.read()
+        if rc != 0:
+            print(text[-4000:], file=sys.stderr)
+        require(rc == 0, f"{script}: exit code {rc}")
+        return text, seconds
+
+    def stop(self):
+        for proc, log, _, _ in self.procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            log.close()
+        self.procs = {}
+
+
+def caffe_vgg16_pth(port, path):
+    """A seeded, conv-only caffe-layout VGG16 ``.pth``
+    (``features.N.weight`` / ``.bias``, He-scaled), as the JAX package's
+    fidelity smoke test writes it: the runbooks' ``--pretrained``."""
+    torch = port.torch
+    sd, in_ch = {}, 3
+    g = torch.Generator().manual_seed(0)
+    for item in port.vgg.VGG16_LAYOUT:
+        if item == "M":
+            continue
+        idx, ch = item
+        sd[f"features.{idx}.weight"] = torch.randn(
+            ch, in_ch, 3, 3, generator=g) * (2.0 / (9 * in_ch)) ** 0.5
+        sd[f"features.{idx}.bias"] = torch.zeros(ch)
+        in_ch = ch
+    torch.save(sd, path)
+    return path
+
+
+def start_protocol_scripts(port):
+    """Starts the protocols path's three runbooks (``scda_kitti_ab.sh``,
+    then the two fidelity runbooks in smoke mode from a seeded caffe-layout
+    ``.pth``), each in a process of its own under a new temporary root
+    outside the checkout.  ``main`` calls it before the ``car`` path, so
+    that the scripts' start-up and steps overlap that path's (whose gates
+    are bit-for-bit; its img/s are then read beside them); returns the
+    ``Scripts``."""
+    import tempfile
+
+    scripts = Scripts(tempfile.mkdtemp(prefix="scda_protocols_"))
+    root = scripts.root
+    scripts.start("kitti", KITTI_SCRIPT, os.path.join(root, "kitti_ab"))
+    pth = caffe_vgg16_pth(port, os.path.join(root, "vgg16_caffe.pth"))
+    for script in FIDELITY_SCRIPTS:
+        name = os.path.basename(script)[:-3]
+        scripts.start(name, script, pth, os.path.join(root, name),
+                      SCDA_FIDELITY_SMOKE="1")
+    return scripts
+
+
+def exported_run(port, root):
+    """The surface path's seeded VGG16 serving weights as a port run
+    (``surface_run_dir``), and that run exported by
+    ``scripts_torch/export_torch.py`` to ``<root>/reference.pth``.
+    Returns (load_dir, pth)."""
+    import importlib
+
+    export = importlib.import_module("scripts_torch.export_torch")
+    cfg32, cfg16 = port.serving_cfgs("vgg16")
+    model = port.build_model(cfg32.model, cfg32.anchors.num_anchors,
+                             device="cpu")
+    port.init_weights(model, port.torch.Generator().manual_seed(0),
+                      input_scale=1.0 / 64, he_heads=True)
+    load_dir = os.path.join(root, "models")
+    surface_run_dir(port, cfg16, model.state_dict(), load_dir)
+    pth = os.path.join(root, "reference.pth")
+    text, _ = quiet_cli(port.torch, export.main, [
+        "--load_dir", load_dir, "--net", "vgg16", "--dataset", "synthetic",
+        "--out", pth], "export_torch.py")
+    require("exported step-0 checkpoint" in text, f"export: {text}")
+    return load_dir, pth
+
+
+def test_net_dets(port, device, root, source, mode):
+    """``cli.test_net`` on the 8 fixture frames at 512x1024 under
+    ``pooling_mode`` ``mode``, its weights from ``source`` (the argv
+    that names them); returns (the detections it wrote, its K2 calls,
+    seconds)."""
+    out = os.path.join(root, f"dets_{mode}_{source[0].strip('-')}.json")
+    with Recorder(port.roi_ops, "roi_align_contract") as rec:
+        text, seconds = quiet_cli(port.torch, port.test_net.main, [
+            "--net", "vgg16", "--dataset", "synthetic", "--synth_images",
+            str(N_FRAMES), "--synth_size", *map(str, CANVAS),
+            "--synth_classes", LEGACY_CLASSES, *source, "--device",
+            str(device), "--set", f"model.pooling_mode={mode}",
+            "--dets_out", out], f"test_net {' '.join(source)} {mode}")
+    require("mAP@0.5" in text, f"test_net printed no mAP: {text[-500:]}")
+    with open(out) as f:
+        dets = json.load(f)
+    require(sum(len(v) for v in dets.values()) >= 1,
+            f"test_net {source} {mode}: no detections")
+    return dets, rec.calls[:1], seconds
+
+
+def cli_inputs(port, device, argv):
+    """What ``cli.trainval`` makes of ``argv``: its config (the class
+    count from its dataset), the first source batch and, with
+    ``--adapt``, the first target batch, from its own fixtures and
+    loaders."""
+    from scda_tpu_torch.config import replace_path
+    from scda_tpu_torch.data.pipeline import DataLoader
+
+    torch, tv = port.torch, port.trainval
+    args = tv.parse_args(argv)
+    cfg = tv.build_config(args)
+    src = tv.get_dataset(args, cfg, args.dataset)
+    cfg = replace_path(cfg, "model.num_classes", src.num_classes)
+
+    def first(ds, seed, fields):
+        b = next(iter(DataLoader(ds, cfg.data, args.bs, seed=seed)))
+        return tuple(torch.from_numpy(getattr(b, f)).to(device)
+                     for f in fields)
+
+    batch = first(src, cfg.train.seed,
+                  ("image", "im_info", "gt_boxes", "num_boxes"))
+    tgt_name = tv.target_name(args)
+    tgt = (first(tv.get_dataset(args, cfg, tgt_name), cfg.train.seed + 7,
+                 ("image", "im_info")) if tgt_name else None)
+    return cfg, batch, tgt
+
+
+def drive_at(port, device, argv):
+    """One train step (the SCDA step with ``--adapt``) and one serving
+    forward at the config ``argv`` gives ``cli.trainval``, recording each
+    kernel's inputs.  Returns (cfg, step records, forward records)."""
+    torch = port.torch
+    cfg, batch, tgt = cli_inputs(port, device, argv)
+    model = port.train_model(cfg, device)
+    state, step = port.train_step(cfg, model, tgt is not None)
+    recs = {**forward_recorders(port),
+            "roi_align_bwd": Recorder(port.rk, "roi_align_contract_bwd"),
+            "mined": Recorder(port.scda, "mine_regions")}
+    with contextlib.ExitStack() as stack:
+        for rec in recs.values():
+            stack.enter_context(rec)
+        _, metrics = step(state, *batch, *(tgt or ()))
+        metrics = {k: float(v) for k, v in metrics.items()}
+    require(all(math.isfinite(v) for v in metrics.values()),
+            f"{argv}: non-finite step metrics {metrics}")
+    with torch.no_grad():
+        fwd = record_forward(port, model, batch[0], batch[1], cfg)
+    return cfg, recs, fwd, metrics
+
+
+def checks_at(port, cfg, recs, fwd, tag):
+    """Each kernel against its twin on the inputs ``drive_at`` recorded:
+    the step's K1, K2 forward and backward (and, in an SCDA step, K1 of
+    the target tower and K2 on the mined regions) and K3; the forward's
+    K1 (proposals and per class), K2 and K3, with times and bounds."""
+    torch = port.torch
+    if recs["mined"].calls:
+        records = {k: recs[k].calls for k in ("nms", "roi_align",
+                                              "roi_align_bwd")}
+        records["mined"] = recs["mined"].results
+        summary = scda_kernel_checks(port, records, cfg, f"{tag}_step")
+    else:
+        summary = train_kernel_checks(
+            port, {k: recs[k].calls for k in ("nms", "vgg_stem",
+                                              "roi_align_bwd")},
+            f"{tag}_step", f"{tag}_step")
+        with torch.no_grad():
+            step_fwd = [((wy.detach(), wx.detach(), feat.detach()), {})
+                        for (wy, wx, feat), _ in recs["roi_align"].calls]
+            roi_err, roi_results = port.check_roi(step_fwd, ("rois",))
+        emit({"phase": "kernel", "path": f"{tag}_step", "kernel": "roi_align",
+              "cases": roi_results, "max_abs_err": roi_err})
+        summary["roi_align"] = {"max_abs_err": roi_err}
+    with torch.no_grad():
+        merge_summaries(summary, serving_checks(port, fwd, tag, f"{tag}_"))
+        # K3 at a canvas other than the paths': its launch alone and from a
+        # CUDA graph, apart from the wrapper's casts and fill.
+        (args, _), = fwd["vgg_stem"].calls
+        run = lambda: port.sk.vgg_stem_fused(*args)   # noqa: E731
+        stem = {f"{tag}_kernel_alone_ms": port.device_kernel_ms(
+                    run, ("vgg_stem_bf16_kernel",))["vgg_stem_bf16_kernel"],
+                f"{tag}_graph_ms": graph_ms(torch, run, 20)}
+    summary["vgg_stem"].update(stem)
+    emit({"phase": "kernel", "path": tag, "kernel": "vgg_stem",
+          "shape": list(args[0].shape), **stem})
+    return summary
+
+
+def protocols_path(port, device, frames, scripts=None):
+    """The paper's protocols through the port's runbooks, started by
+    :func:`start_protocol_scripts` (before the ``car`` path in a whole
+    run; here when ``scripts`` is None), each in a process of its own:
+    ``scripts_torch/fidelity_foggy.sh`` and ``fidelity_sim10k.sh`` in
+    their ``SCDA_FIDELITY_SMOKE=1`` mode from a seeded conv-only
+    caffe-layout ``.pth`` (each exits 0 and prints ``loaded pretrained
+    backbone`` and ``mAP@0.5``), and ``scripts_torch/scda_kitti_ab.sh``
+    as written (400 source steps, two 150-step arms, four evaluations on
+    the 256x640 canvas: the source loss halves from its first logged step
+    to the mean of its last two, both arms' clean mAP >= ``AB_MAP_MIN``).
+    Here, with every launch count set to 0 before and read after:
+    ``align_legacy`` at full width (the surface weights exported by
+    ``scripts_torch/export_torch.py``, served on 8 frames by
+    ``cli.test_net --torch_checkpoint`` and ``--load_dir``: equal
+    detections; the f32 card run against the CPU on 2 frames, >= 90%
+    matched); the export round trip (the same ``.pth`` under ``align``
+    gives the detections of ``--load_dir``); one train step and one
+    forward at the fidelity smoke's config (64x96, proposals 128 -> 32,
+    anchor scales 1 2 4, ``align_legacy``) and one SCDA step and one
+    forward at the KITTI geometry (192x640 scenes on the 256x640
+    canvas).  Once the scripts are done, each kernel against its twin on
+    the inputs these runs gave it, with times: K2 on legacy weights, and
+    K1, K2 forward and backward and K3 at both small configs."""
+    import shutil
+
+    torch = port.torch
+    t0 = time.perf_counter()
+    scripts = scripts or start_protocol_scripts(port)
+    root = scripts.root
+    kitti_out = os.path.join(root, "kitti_ab")
+    try:
+        for w in port.wrappers.values():
+            w.launches = 0
+        load_dir, ref_pth = exported_run(port, root)
+        via_pth, legacy_calls, s_pth = test_net_dets(
+            port, device, root, ["--torch_checkpoint", ref_pth],
+            "align_legacy")
+        via_dir, _, s_dir = test_net_dets(
+            port, device, root, ["--load_dir", load_dir], "align_legacy")
+        cfg32, _ = port.serving_cfgs("vgg16", pooling_mode="align_legacy")
+        model32 = port.build_model(cfg32.model, cfg32.anchors.num_anchors,
+                                   device=device)
+        port.bridge.load_reference_checkpoint(model32, ref_pth)
+        images_np, infos_np = frames[:2]
+        with torch.no_grad():
+            _, outs32, dets32 = port.serve(
+                model32, cfg32, [torch.from_numpy(x).to(device)
+                                 for x in images_np[:2]],
+                [torch.from_numpy(x).to(device) for x in infos_np[:2]], 1)
+        state = {k: v.cpu() for k, v in model32.state_dict().items()}
+        del model32
+        cfg_f, recs_f, fwd_f, metrics_f = drive_at(
+            port, device, [*FIDELITY_SMOKE, "--device", str(device)])
+        cfg_k, recs_k, fwd_k, metrics_k = drive_at(
+            port, device, [*KITTI_COMMON, *KITTI_SCDA, "--device",
+                           str(device)])
+        # The export round trip: the same file under ``align``.
+        trip_pth, _, _ = test_net_dets(
+            port, device, root, ["--torch_checkpoint", ref_pth], "align")
+        trip_dir, _, _ = test_net_dets(
+            port, device, root, ["--load_dir", load_dir], "align")
+        torch.cuda.synchronize()
+        launches = launch_counts(port)
+        # test_net four times on 8 frames, the f32 run on 2, a train step
+        # and a forward at the smoke's config, an SCDA step and a forward
+        # at the KITTI geometry.
+        want = {"nms": 4 * 2 * N_FRAMES + 2 * 2 + 3 + 4,
+                "roi_align": 4 * N_FRAMES + 2 + 2 + 4, "roi_align_bwd": 4,
+                "vgg_stem": 4 * N_FRAMES + 2 + 2 + 3, "bottleneck_chain": 0,
+                "bottleneck_chain_bwd": 0}
+        require(launches == want,
+                f"protocols: launches {launches}, expected {want}")
+        with torch.no_grad():
+            port.vs_cpu(cfg32, state, images_np, infos_np, outs32, 2,
+                        "protocols_align_legacy")
+        legacy = {"torch_checkpoint_equals_load_dir": via_pth == via_dir,
+                  "detections": sum(len(v) for v in via_pth.values()),
+                  "seconds": [s_pth, s_dir], **dets32}
+        emit({"phase": "protocols", "stage": "align_legacy", **legacy})
+        require(legacy["torch_checkpoint_equals_load_dir"],
+                "align_legacy: --torch_checkpoint and --load_dir detections "
+                "differ")
+        round_trip = {"pooling_mode": "align",
+                      "torch_checkpoint_equals_load_dir": trip_pth == trip_dir,
+                      "detections": sum(len(v) for v in trip_pth.values())}
+        emit({"phase": "protocols", "stage": "export_round_trip",
+              **round_trip})
+        require(round_trip["torch_checkpoint_equals_load_dir"],
+                "export round trip: --torch_checkpoint and --load_dir "
+                "detections differ under align")
+
+        fidelity = {}
+        for script in FIDELITY_SCRIPTS:
+            name = os.path.basename(script)[:-3]
+            text, seconds = scripts.wait(name)
+            fidelity[name] = {
+                "seconds": seconds,
+                "loaded_pretrained": "loaded pretrained backbone" in text,
+                "mAP_line": next((line for line in text.splitlines()
+                                  if line.startswith("mAP@0.5")), None)}
+            emit({"phase": "protocols", "stage": name, **fidelity[name]})
+            require(fidelity[name]["loaded_pretrained"]
+                    and fidelity[name]["mAP_line"],
+                    f"{script}: {fidelity[name]}")
+        text, seconds = scripts.wait("kitti")
+        maps = [float(line.split()[2]) for line in text.splitlines()
+                if line.startswith("mAP@0.5 =")]
+        require(len(maps) == len(KITTI_EVALS),
+                f"{KITTI_SCRIPT}: {len(maps)} evaluations, expected "
+                f"{len(KITTI_EVALS)}")
+        with open(os.path.join(kitti_out, "src", "vgg16", "synthetic",
+                               "metrics.jsonl")) as f:
+            rows = [json.loads(line)["train"] for line in f]
+        rates = [float(line.split("avg ")[1].split()[0])
+                 for line in text.splitlines() if line.startswith("done:")]
+        kitti = {"script": KITTI_SCRIPT, "seconds": seconds,
+                 "source_logged_steps": [r["step"] for r in rows],
+                 # The script logs every 100 steps: its first logged
+                 # loss against the mean of its last two.
+                 "source_loss_first": rows[0]["loss"],
+                 "source_loss_last": (rows[-2]["loss"] + rows[-1]["loss"]) / 2,
+                 "mAP": {f"{arm}_fog{fog}": m
+                         for (arm, fog), m in zip(KITTI_EVALS, maps)},
+                 "train_img_per_s": rates,
+                 "jax_car_protocol": PROTOCOLS["car"]["jax"],
+                 "jax_note": "the JAX package never recorded this protocol; "
+                             "its car protocol (RESULTS.md) is beside",
+                 "step_metrics_in_process": metrics_k}
+        gates = {"source_loss_halves": kitti["source_loss_last"]
+                 <= 0.5 * kitti["source_loss_first"],
+                 "arms_clean_map": all(kitti["mAP"][f"{arm}_fog0.0"]
+                                       >= AB_MAP_MIN
+                                       for arm in ("ctrl", "scda"))}
+        emit({"phase": "protocols", "stage": "kitti", **kitti,
+              "gates": gates})
+        for name, ok in gates.items():
+            require(ok, f"kitti: gate {name} failed")
+
+        # The kernels against their twins, the scripts done.
+        with torch.no_grad():
+            err, results = port.check_roi(legacy_calls, ("align_legacy",))
+            (a, _), = legacy_calls
+            out = port.rk.roi_align_contract_plain(*a)
+            times = {"feat": list(a[2].shape), "rois": int(a[0].shape[1]),
+                     "ms": time_ms(torch, lambda: port.rk.roi_align_contract(
+                         *a), 20),
+                     "plain_ms": time_ms(torch, lambda: port.rk.
+                                         roi_align_contract_plain(*a), 5),
+                     "kernel_alone_ms": port.device_kernel_ms(
+                         lambda: port.rk.roi_align_contract(*a),
+                         ("roi_align_contract",))["roi_align_contract"],
+                     **roi_bound(*a, out),
+                     **einsum_library(torch, K2_EINSUM, *a, out,
+                                      "K2 align_legacy")}
+        emit({"phase": "kernel", "path": "protocols_align_legacy",
+              "kernel": "roi_align", "cases": results, "max_abs_err": err,
+              **times})
+        summary = {"roi_align": {"max_abs_err": err,
+                                 **{f"legacy_{k}": v
+                                    for k, v in times.items()}}}
+        merge_summaries(summary, checks_at(port, cfg_f, recs_f, fwd_f,
+                                           "fidelity_smoke"))
+        merge_summaries(summary, checks_at(port, cfg_k, recs_k, fwd_k,
+                                           "kitti"))
+        emit({"phase": "protocols", "stage": "fidelity_smoke_step",
+              "metrics": metrics_f})
+    finally:
+        scripts.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"protocols": {"align_legacy": legacy, "fidelity": fidelity,
+                        "kitti": kitti, "export_round_trip": round_trip,
+                        "launches": launches,
+                        "seconds": time.perf_counter() - t0}})
+    return summary, {"protocols": launches}
+
+
+def loader_rows(text):
+    """``scripts_torch/loader_bench.py``'s output: the host's CPU count,
+    img/s per epoch of each row, and the store line."""
+    import re
+
+    out = {"rows": {}}
+    for line in text.splitlines():
+        if line.startswith("host:"):
+            out["host_cpus"] = int(line.split()[1])
+        elif line.startswith("store:"):
+            out["store"] = line
+        elif "ep0:" in line:
+            tag = line.split("ep0:")[0].strip()
+            out["rows"][tag] = [float(v) for v in
+                                re.findall(r"ep\d+: +([0-9.]+) img/s", line)]
+    return out
+
+
+def tools_path(port, device, frames):
+    """The port's tools: ``scripts_torch/loader_bench.py`` at its
+    defaults (1024x2048 scenes, bs 8, 3 epochs, 64 MB, 1 worker) in a
+    process of its own, its rows beside the VGG16 train bs 8 img/s the
+    ``vgg16_train`` path measured in this run; then K4 alone at layer3
+    against its twin and cuDNN (``scripts_torch/bottleneck_ab.py`` stage
+    1) and, with every launch count set to 0 before and read after, the
+    K4 A/B (res101-ms serving on / off / on) and the
+    ``ms_proj_after_pool`` A/B (``scripts_torch/ms_proj_ab.py``, bs 1 and
+    8, off / on / off), both with ``AB_ITERS`` x ``AB_REPEATS`` windows
+    and the arms' detections agreeing.  (The export round trip runs in
+    the protocols path, while its scripts run.)"""
+    import importlib
+    import shutil
+    import tempfile
+
+    torch = port.torch
+    bab = importlib.import_module("scripts_torch.bottleneck_ab")
+    mab = importlib.import_module("scripts_torch.ms_proj_ab")
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="scda_tools_")   # outside the checkout
+    try:
+        here = os.path.dirname(os.path.abspath(__file__))
+        r = subprocess.run(
+            [sys.executable, os.path.join(here, "scripts_torch",
+                                          "loader_bench.py")],
+            cwd=here, env={**os.environ, "TMPDIR": root},
+            capture_output=True, text=True, timeout=SCRIPT_TIMEOUT)
+        require(r.returncode == 0, f"loader_bench.py: {r.stderr[-2000:]}")
+        loader = {**loader_rows(r.stdout), "seconds": time.perf_counter() - t0,
+                  "vgg16_train_bs8_img_per_s": port.run_rates.get(
+                      "vgg16_train_bs8")}
+        emit({"phase": "tools", "stage": "loader_bench", **loader})
+        require(len(loader["rows"]) == 2 and "host_cpus" in loader,
+                f"loader_bench.py printed {r.stdout[-1000:]}")
+
+        k4_alone = bab.stage1(device)   # a comparison: not counted
+        for w in port.wrappers.values():
+            w.launches = 0
+        k4_ab = bab.stage2(device, AB_ITERS[1], AB_REPEATS)
+        ms_proj = {f"bs{bs}": mab.run(bs, device, AB_ITERS[bs], AB_REPEATS,
+                                      inputs=AB_INPUTS[bs])
+                   for bs in (1, 8)}
+        torch.cuda.synchronize()
+        launches = launch_counts(port)
+        require(all(launches[k] > 0 for k in ("nms", "roi_align",
+                                               "bottleneck_chain")),
+                f"tools: a kernel of the A/Bs never launched: {launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"tools": {"loader_bench": loader, "k4_alone": k4_alone,
+                    "k4_ab": k4_ab, "ms_proj_ab": ms_proj,
+                    "ab_windows": {"iters": AB_ITERS, "repeats": AB_REPEATS},
+                    "launches": launches,
+                    "seconds": time.perf_counter() - t0}})
+    return {}, {"tools": launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "scda_tpu_torch")):
@@ -3287,24 +3812,38 @@ def main() -> int:
              ("vgg16_scda", vgg16_scda_path),
              ("vgg16_surface", vgg16_surface_path),
              ("bench_batches", bench_batches_path),
-             ("learning", learning_path), ("car", car_path))
+             ("learning", learning_path), ("car", car_path),
+             ("protocols", protocols_path), ("tools", tools_path))
     only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
     require(only is None or set(only) <= {n for n, _ in paths},
             f"--only takes a comma-separated subset of {[n for n, _ in paths]}")
-    for name, fn in paths:
-        if only is not None and name not in only:
-            continue
-        t0 = time.perf_counter()
-        serving = name in ("vgg16", "res101_ms")
-        with torch.no_grad() if serving else contextlib.nullcontext():
-            summary, by_path = fn(port, device, frames)
-        if serving:
-            by_path = {name: by_path}
-        launches.update(by_path)
-        merge_summaries(summaries, summary)   # the first path's times
-        timings[name] = time.perf_counter() - t0
-        emit({"phase": "path_done", "path": name, "seconds": timings[name]})
-        torch.cuda.empty_cache()
+    # The protocols path's scripts run in processes of their own from the
+    # start of the car path on (``start_protocol_scripts``).
+    scripts = None
+    try:
+        for name, fn in paths:
+            if only is not None and name not in only:
+                continue
+            if (name == "car" and (only is None or "protocols" in only)
+                    and scripts is None):
+                scripts = start_protocol_scripts(port)
+            t0 = time.perf_counter()
+            serving = name in ("vgg16", "res101_ms")
+            extra = {"scripts": scripts} if name == "protocols" else {}
+            with torch.no_grad() if serving else contextlib.nullcontext():
+                summary, by_path = fn(port, device, frames, **extra)
+            if serving:
+                by_path = {name: by_path}
+            launches.update(by_path)
+            merge_summaries(summaries, summary)   # the first path's times
+            timings[name] = time.perf_counter() - t0
+            emit({"phase": "path_done", "path": name,
+                  "seconds": timings[name]})
+            torch.cuda.empty_cache()
+    finally:   # every process it started ends with it
+        if scripts is not None:
+            scripts.stop()
+            shutil.rmtree(scripts.root, ignore_errors=True)
     require(not {"jax", "flax", "scda_tpu"} & set(sys.modules),
             "the port imported JAX or the JAX package")
     if only is not None:   # a partial run proves nothing as a whole

@@ -282,9 +282,12 @@ def _train(world, device, args, cfg, dataset, tgt_dataset) -> int:
 
     # The JAX package's init distributions from the train seed, then a
     # pretrained backbone, unless a whole detector is loaded (the JAX
-    # CLI's order).
+    # CLI's order).  ``--init_from`` restores every tensor of the
+    # detector below, so the init (seconds of host time for VGG16) is
+    # left out there: the weights that train are the same.
     model = empty_model(cfg.model, cfg.anchors.num_anchors)
-    init_params(model, torch.Generator().manual_seed(cfg.train.seed))
+    if not args.init_from:
+        init_params(model, torch.Generator().manual_seed(cfg.train.seed))
     if args.pretrained:
         from scda_tpu_torch.train.torch_convert import load_pretrained_backbone
 

@@ -32,10 +32,18 @@ def call_sites():
 
 
 @contextlib.contextmanager
-def plain_twins():
+def plain_twins(*names):
     """Inside the block every kernel's call site takes its plain twin, on
-    every device: the reference a kernel path is held against."""
+    every device: the reference a kernel path is held against.  Given
+    wrapper names (``plain_twins("bottleneck_chain")``), only those sites
+    are swapped: the off arm of an A/B of one kernel."""
     sites = call_sites()
+    unknown = set(names) - {name for _, name, _ in sites}
+    if unknown:
+        raise ValueError(f"no call site named {sorted(unknown)}; the sites "
+                         f"are {[name for _, name, _ in sites]}")
+    if names:
+        sites = tuple(s for s in sites if s[1] in names)
     saved = [getattr(module, name) for module, name, _ in sites]
     try:
         for module, name, twin in sites:

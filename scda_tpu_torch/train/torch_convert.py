@@ -20,12 +20,19 @@ Only the backbone (and VGG16's fc6/fc7) is replaced; the RPN and RoI
 heads keep their fresh init.  Every key the model's layout asks for must
 be in the file with the model's shape; keys the layout does not read
 (``fc.*``, ``num_batches_tracked``) are ignored, as in the JAX package.
+
+The other way, :func:`export_reference_detector` (port of the JAX
+package's function of that name) turns a trained detector into the
+reference lineage's state dict and :func:`reference_payload` into the
+``{'model': ...}`` file its ``test_net.py`` loads.  The port's modules
+already carry the reference's names and RPN channel order, so the export
+is the state dict without what the reference lacks.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import torch
 
@@ -122,3 +129,27 @@ def load_pretrained_backbone(model: FasterRCNN, path: str, backbone: str,
     for name, value in convert_backbone(model, sd, backbone).items():
         tensors[name].copy_(value)
     return model
+
+
+def export_reference_detector(state_dict: Mapping[str, torch.Tensor],
+                              backbone: str) -> Dict[str, torch.Tensor]:
+    """A VGG16 or ResNet detector's state dict -> the reference layout
+    (f32 tensors on the CPU).  ``RCNN_c3_proj`` (multiscale pooling), which
+    the reference lineage does not have, is left out; other backbones
+    have no reference counterpart and raise ValueError."""
+    if backbone != "vgg16" and not backbone.startswith("resnet"):
+        raise ValueError(f"no reference exporter for {backbone!r}")
+    return {k: v.detach().to("cpu", torch.float32).contiguous()
+            for k, v in state_dict.items()
+            if not k.startswith("RCNN_c3_proj.")}
+
+
+def reference_payload(state_dict: Mapping[str, torch.Tensor], model_cfg,
+                      step: int) -> Dict[str, Any]:
+    """The ``{'model': ...}`` payload the reference's ``test_net.py --r``
+    loads, with the fields the JAX package's exporter writes."""
+    return {"model": export_reference_detector(state_dict,
+                                               model_cfg.backbone),
+            "session": 1, "epoch": 0, "step": int(step),
+            "pooling_mode": model_cfg.pooling_mode,
+            "class_agnostic": model_cfg.class_agnostic}

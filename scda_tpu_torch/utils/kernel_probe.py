@@ -274,6 +274,36 @@ def probe_k3(device):
               f"ms, kernel alone {rows[0][2] / 1e3:.4f} ms", flush=True)
 
 
+def cudnn_chain(x, w1, b1, w2, b2, w3, b3):
+    """K4's library yardstick: the eager chain of folded ``F.conv2d`` (1x1,
+    3x3 pad 1, 1x1) with relu and the residual add, channels_last bf16.
+    Returns (run, to_nhwc): ``to_nhwc(run())`` is the chain's output."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    n, c, f = w1.shape
+
+    def cl(t):
+        return t.to(bf).contiguous(memory_format=torch.channels_last)
+
+    xc = cl(x.permute(0, 3, 1, 2))
+    k1 = [cl(w1[i].t().reshape(f, c, 1, 1)) for i in range(n)]
+    k2 = [cl(w2[i].reshape(3, 3, f, f).permute(3, 2, 0, 1)) for i in range(n)]
+    k3 = [cl(w3[i].t().reshape(c, f, 1, 1)) for i in range(n)]
+    c1, c2, c3 = ([b[i].reshape(-1).to(bf) for i in range(n)]
+                  for b in (b1, b2, b3))
+
+    def run():
+        y = xc
+        for i in range(n):
+            t = torch.relu(F.conv2d(y, k1[i], c1[i]))
+            t = torch.relu(F.conv2d(t, k2[i], c2[i], padding=1))
+            y = torch.relu(F.conv2d(t, k3[i], c3[i]) + y)
+        return y
+
+    return run, lambda y: y.permute(0, 2, 3, 1)
+
+
 def probe_k4(device):
     from scda_tpu_torch.ops.kernels import bottleneck_kernel as bk
 

@@ -853,3 +853,71 @@ def test_scda_step_on_card_matches_cpu(cuda, d_update):
     assert set(cpu) == set(card) and "adv" in cpu
     for k, v in cpu.items():
         np.testing.assert_allclose(card[k], v, rtol=1e-4, err_msg=k)
+
+
+# ---- the shapes of the protocols path (KITTI geometry, fidelity smoke,
+# align_legacy serving) -----------------------------------------------------
+
+def test_roi_align_kernel_on_legacy_weights(cuda):
+    """K2 fed the reference lineage's RoI-Align weights (``align_legacy``:
+    two taps a row at bin corners, the last half-cell extrapolating, rows
+    outside the map zero) at VGG16's stride-16 map, R=300: f32 within
+    1e-5, bf16 features within rtol 1e-2, atol 1e-3, as on the path."""
+    from scda_tpu_torch.ops import roi_ops
+
+    g = torch.Generator().manual_seed(14)
+    h, w, c, r = 32, 64, 512, 300
+    xy = torch.rand((1, r, 2), generator=g) * torch.tensor([w * 16., h * 16.])
+    wh = torch.rand((1, r, 2), generator=g) * 400 + 2
+    # Some boxes reach past the map's right and bottom edges.
+    rois = torch.cat([xy - 40, xy + wh], -1).to(cuda)
+    ys, xs = roi_ops._legacy_sample_coords(rois, 1.0 / 16, 7)
+    wy, wx = (roi_ops._legacy_axis_weights(ys, h),
+              roi_ops._legacy_axis_weights(xs, w))
+    assert bool((wy < 0).any() or (wx < 0).any())   # extrapolated taps
+    feat = torch.randn((1, h, w, c), generator=g).to(cuda)
+    for f, rtol, atol in ((feat, 1e-5, 1e-5),
+                          (feat.to(torch.bfloat16), 1e-2, 1e-3)):
+        out = roi_align_kernel.roi_align_contract(wy, wx, f)
+        ref = roi_align_kernel.roi_align_contract_plain(wy, wx, f)
+        torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 256, 640), (1, 64, 96)])
+def test_stem_kernel_at_the_protocol_canvases(cuda, dtype, shape):
+    """K3 on the KITTI canvas (256x640) and the fidelity smoke's (64x96):
+    f32 within 1e-4, bf16 within 2 ulps."""
+    from scda_tpu_torch.utils.kernel_probe import stem_inputs
+
+    b, h, w = shape
+    x, k1, b1, k2, b2 = stem_inputs(torch.Generator().manual_seed(h), b,
+                                    "cpu")
+    x = x[:, :h, :w].contiguous().to(cuda)
+    k1, b1, k2, b2 = (t.to(cuda) for t in (k1, b1, k2, b2))
+    out = stem_kernel.vgg_stem_fused(x, k1, b1, k2, b2, dtype=dtype).float()
+    ref = stem_kernel.vgg_stem_plain(x, k1, b1, k2, b2, dtype=dtype).float()
+    assert out.shape == (b, h // 2, w // 2, 64)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    else:
+        assert bool(((out - ref).abs() <= 2 * _bf16_ulp(ref)).all())
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+@pytest.mark.parametrize("max_out", [300, 2000])
+def test_nms_kernel_at_the_kitti_canvas(cuda, clustered, max_out):
+    """K1 over every anchor of the 256x640 canvas (16 x 40 x 9 = 5760,
+    under the 6000 and 12000 top-N), to the serving and training
+    budgets."""
+    from scda_tpu_torch.utils.kernel_probe import proposal_boxes
+
+    n = 16 * 40 * 9
+    g = torch.Generator().manual_seed(max_out)
+    boxes = proposal_boxes(g, 1, n, clustered).to(cuda)
+    valid = (torch.rand((1, n), generator=g) < 0.95).to(cuda)
+    keep = nms_kernel.nms_sorted(boxes, valid, iou_threshold=0.7,
+                                 max_output=max_out)
+    plain = nms_kernel.nms_sorted_plain(boxes, valid, iou_threshold=0.7,
+                                        max_output=max_out)
+    assert torch.equal(keep, plain)

@@ -565,21 +565,29 @@ def test_port_imports_no_jax(tmp_path):
 
 
 def test_port_sources_name_no_jax_package():
-    """No file of the port, and neither ``chip_smoke.py`` nor
-    ``bench_torch.py``, imports the JAX package: no ``import scda_tpu`` or
-    ``from scda_tpu`` followed by a dot, a space or the end of the line."""
+    """No file of the port, of its runbooks and tools (``scripts_torch/``),
+    and neither ``chip_smoke.py`` nor ``bench_torch.py``, imports the JAX
+    package: no ``import scda_tpu`` or ``from scda_tpu`` followed by a
+    dot, a space or the end of the line, and no ``python -m scda_tpu.``;
+    nor does a file of ``scripts_torch/`` import JAX or flax."""
     import re
 
-    pattern = re.compile(r"\b(?:import|from)\s+scda_tpu(?:[.\s]|$)", re.M)
+    pattern = re.compile(r"\b(?:import|from)\s+scda_tpu(?:[.\s]|$)"
+                         r"|-m\s+scda_tpu\.", re.M)
+    jax = re.compile(r"\b(?:import|from)\s+(?:jax|flax)\b")
     paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "bench_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "scda_tpu_torch")):
         paths += [os.path.join(root, f) for f in files
                   if f.endswith((".py", ".cu", ".cuh", ".cc"))]
-    assert len(paths) > 30
+    scripts = [os.path.join(REPO, "scripts_torch", f)
+               for f in sorted(os.listdir(os.path.join(REPO, "scripts_torch")))
+               if f.endswith((".py", ".sh"))]
+    assert len(paths) > 30 and len(scripts) == 10
     bad = []
-    for path in paths:
+    for path in paths + scripts:
         with open(path) as f:
             for i, line in enumerate(f, 1):
-                if pattern.search(line):
+                if pattern.search(line) or (path in scripts
+                                            and jax.search(line)):
                     bad.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
     assert not bad, bad

@@ -43,6 +43,7 @@ from scda_tpu_torch.train.state import TrainState
 from scda_tpu_torch.train.steps import (
     ScdaGenerators, check_train_config, scda_step_generators,
 )
+from scda_tpu_torch.utils.profile import span, span_ids
 
 
 @dataclasses.dataclass
@@ -136,36 +137,69 @@ def _scda_parts(
     det_out = forward_train(model, *src_batch, cfg, rngs.det, draws=draws,
                             world=world)
 
-    # Target domain: features and proposals only (no labels).  The RPN
-    # head feeds nothing but the proposal layer, which has no gradient.
-    feat_t = model.features(tgt_image)
-    with torch.no_grad():
-        rpn_cls_t, rpn_bbox_t = model.rpn_out(feat_t)
-    anchors = make_anchors(cfg, (feat_t.shape[1], feat_t.shape[2]),
-                           feat_t.device)
-    # Mining reads the top ``mining_top_n`` proposals, and greedy NMS is
-    # prefix-stable (the first K kept boxes do not depend on the output
-    # budget), so capping post_nms_top_n there is exact and shortens the
-    # NMS scan and every gather after it.
-    tgt_pcfg = dataclasses.replace(
-        cfg.train.proposal,
-        post_nms_top_n=min(cfg.train.proposal.post_nms_top_n,
-                           max(int(ac.mining_top_n), 1)))
-    props_t = propose(rpn_cls_t, rpn_bbox_t, anchors, tgt_im_info, tgt_pcfg)
-
-    mined_s = mine_regions(det_out.proposals.boxes, det_out.proposals.valid,
-                           ac, rngs.mine_src, draws=draws.get("mine_src"))
-    mined_t = mine_regions(props_t.boxes, props_t.valid, ac, rngs.mine_tgt,
-                           draws=draws.get("mine_tgt"))
-
     def pooled_patches(feat, mined: MinedRegions) -> Patches:
         patches = pool_rois(feat, mined.boxes, None, cfg.model,
                             output_size=ac.region_pool_size)
         return (patches.float(), mined.weights.reshape(-1),
                 mined.valid.reshape(-1))
 
-    return (det_out, pooled_patches(det_out.base_feat, mined_s),
-            pooled_patches(feat_t, mined_t))
+    with span("adapt"):
+        # Target domain: features and proposals only (no labels).  The RPN
+        # head feeds nothing but the proposal layer, which has no gradient.
+        with span("adapt.target"):
+            feat_t = model.features(tgt_image)
+            with torch.no_grad():
+                rpn_cls_t, rpn_bbox_t = model.rpn_out(feat_t)
+            anchors = make_anchors(cfg, (feat_t.shape[1], feat_t.shape[2]),
+                                   feat_t.device)
+            # Mining reads the top ``mining_top_n`` proposals, and greedy
+            # NMS is prefix-stable (the first K kept boxes do not depend on
+            # the output budget), so capping post_nms_top_n there is exact
+            # and shortens the NMS scan and every gather after it.
+            tgt_pcfg = dataclasses.replace(
+                cfg.train.proposal,
+                post_nms_top_n=min(cfg.train.proposal.post_nms_top_n,
+                                   max(int(ac.mining_top_n), 1)))
+            props_t = propose(rpn_cls_t, rpn_bbox_t, anchors, tgt_im_info,
+                              tgt_pcfg)
+
+        with span("adapt.mine"):
+            mined_s = mine_regions(det_out.proposals.boxes,
+                                   det_out.proposals.valid, ac, rngs.mine_src,
+                                   draws=draws.get("mine_src"))
+            mined_t = mine_regions(props_t.boxes, props_t.valid, ac,
+                                   rngs.mine_tgt, draws=draws.get("mine_tgt"))
+
+        with span("adapt.patches"):
+            patches_s = pooled_patches(det_out.base_feat, mined_s)
+            patches_t = pooled_patches(feat_t, mined_t)
+    return det_out, patches_s, patches_t
+
+
+def _span_backward(adv: torch.Tensor, det_loss: torch.Tensor) -> None:
+    """While a profiler records: ``scda.adapt.bwd`` opens when the
+    backward reaches ``adv``'s node and closes when it reaches
+    ``det_loss``'s.  Autograd runs the ready node created last first, and
+    every node only the adversarial loss reaches (the discriminator, the
+    gradient reversals, the patches' RoI-Align, the target tower) was
+    created after the detection loss's, so the span holds all of them and
+    no node of the detection loss.  The nodes run on autograd's thread:
+    the span carries the ids of this forward."""
+    ids = span_ids()
+    if ids is None or adv.grad_fn is None or det_loss.grad_fn is None:
+        return
+    opened = []
+
+    def open_(grad_outputs):
+        opened.append(span("adapt.bwd", **ids))
+        opened[-1].__enter__()
+
+    def close(grad_outputs):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    adv.grad_fn.register_prehook(open_)
+    det_loss.grad_fn.register_prehook(close)
 
 
 def scda_forward(model: FasterRCNN, d_model: PatchDiscriminator, src_batch,
@@ -178,11 +212,13 @@ def scda_forward(model: FasterRCNN, d_model: PatchDiscriminator, src_batch,
     ac = cfg.adapt
     det_out, (p_s, w_s, v_s), (p_t, w_t, v_t) = _scda_parts(
         model, src_batch, tgt_image, tgt_im_info, cfg, rngs, draws, world)
-    loss_s, acc_s = _weighted_bce(
-        d_model(grad_reverse(p_s, ac.grl_weight)), w_s, v_s, 1, world)
-    loss_t, acc_t = _weighted_bce(
-        d_model(grad_reverse(p_t, ac.grl_weight)), w_t, v_t, 0, world)
-    adv = 0.5 * (loss_s + loss_t)
+    with span("adapt"), span("adapt.disc"):
+        loss_s, acc_s = _weighted_bce(
+            d_model(grad_reverse(p_s, ac.grl_weight)), w_s, v_s, 1, world)
+        loss_t, acc_t = _weighted_bce(
+            d_model(grad_reverse(p_t, ac.grl_weight)), w_t, v_t, 0, world)
+        adv = 0.5 * (loss_s + loss_t)
+    _span_backward(adv, det_out.loss)
 
     total = det_out.loss + ac.adv_weight * adv
     metrics = dict(det_out.metrics)
@@ -211,16 +247,22 @@ def scda_forward_alternating(model: FasterRCNN, d_model: PatchDiscriminator,
     det_out, (p_s, w_s, v_s), (p_t, w_t, v_t) = _scda_parts(
         model, src_batch, tgt_image, tgt_im_info, cfg, rngs, draws, world)
 
-    d_loss_s, acc_s = _weighted_bce(d_model(p_s.detach()), w_s, v_s, 1, world)
-    d_loss_t, acc_t = _weighted_bce(d_model(p_t.detach()), w_t, v_t, 0, world)
-    d_loss = 0.5 * (d_loss_s + d_loss_t)
+    with span("adapt"), span("adapt.disc"):
+        d_loss_s, acc_s = _weighted_bce(d_model(p_s.detach()), w_s, v_s, 1,
+                                        world)
+        d_loss_t, acc_t = _weighted_bce(d_model(p_t.detach()), w_t, v_t, 0,
+                                        world)
+        d_loss = 0.5 * (d_loss_s + d_loss_t)
 
-    frozen = {n: p.detach() for n, p in d_model.named_parameters()}
-    g_loss_s, _ = _weighted_bce(
-        torch.func.functional_call(d_model, frozen, (p_s,)), w_s, v_s, 0, world)
-    g_loss_t, _ = _weighted_bce(
-        torch.func.functional_call(d_model, frozen, (p_t,)), w_t, v_t, 1, world)
-    adv = 0.5 * (g_loss_s + g_loss_t)
+        frozen = {n: p.detach() for n, p in d_model.named_parameters()}
+        g_loss_s, _ = _weighted_bce(
+            torch.func.functional_call(d_model, frozen, (p_s,)), w_s, v_s, 0,
+            world)
+        g_loss_t, _ = _weighted_bce(
+            torch.func.functional_call(d_model, frozen, (p_t,)), w_t, v_t, 1,
+            world)
+        adv = 0.5 * (g_loss_s + g_loss_t)
+    _span_backward(adv, det_out.loss)
 
     total = det_out.loss + ac.adv_weight * adv + d_loss
     metrics = dict(det_out.metrics)
@@ -260,24 +302,27 @@ def make_scda_train_step(model: FasterRCNN, d_model: PatchDiscriminator,
 
     def step(state: ScdaTrainState, src_image, src_info, src_gt, src_num,
              tgt_image, tgt_info, draws=None):
-        rngs = scda_step_generators(seed, state.step, device)
-        if world is not None:
-            rngs = ScdaGenerators(StepGenerators(*map(world.shard, rngs.det)),
-                                  world.shard(rngs.mine_src),
-                                  world.shard(rngs.mine_tgt))
-        total, metrics = forward(
-            state.model, state.d_model,
-            (src_image, src_info, src_gt, src_num), tgt_image, tgt_info,
-            cfg, rngs, draws, world)
-        names, params = state.det.trainable()
-        d_names, d_params = zip(*state.d_model.named_parameters())
-        grads = torch.autograd.grad(total, [*params, *d_params],
-                                    materialize_grads=True)
-        if world is not None:
-            grads = world.sum_tensors(grads)
-            metrics = world.sum_metrics(metrics)
-        state.apply_gradients(dict(zip(names, grads[:len(names)])),
-                              dict(zip(d_names, grads[len(names):])))
+        with span("scda_step", step=state.step):
+            rngs = scda_step_generators(seed, state.step, device)
+            if world is not None:
+                rngs = ScdaGenerators(
+                    StepGenerators(*map(world.shard, rngs.det)),
+                    world.shard(rngs.mine_src), world.shard(rngs.mine_tgt))
+            total, metrics = forward(
+                state.model, state.d_model,
+                (src_image, src_info, src_gt, src_num), tgt_image, tgt_info,
+                cfg, rngs, draws, world)
+            names, params = state.det.trainable()
+            d_names, d_params = zip(*state.d_model.named_parameters())
+            with span("backward"):
+                grads = torch.autograd.grad(total, [*params, *d_params],
+                                            materialize_grads=True)
+            if world is not None:
+                grads = world.sum_tensors(grads)
+                metrics = world.sum_metrics(metrics)
+            with span("optimizer"):
+                state.apply_gradients(dict(zip(names, grads[:len(names)])),
+                                      dict(zip(d_names, grads[len(names):])))
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

@@ -26,7 +26,12 @@ the config (on the CPU, ``--set model.stem_pallas=false`` trains conv1 and
 conv2).  ``--pretrained PTH`` loads a torchvision / caffe backbone
 (``train/torch_convert.py``), ``--use_tfb`` mirrors the metrics to
 TensorBoard where its writer is installed, ``--profile DIR`` writes a
-``torch.profiler`` trace of steps 3-8.
+``torch.profiler`` trace of steps 3-8, with the program's ``scda.*`` spans
+(``utils/profile.py``) over its layers: here ``scda.data.wait``, the wait
+for the loader's next batch, and ``scda.data.h2d``, its copy to the
+device.  Every logged line has ``data_wait_frac``, the share of the wall
+time since the last logged line that the loop spent waiting on the
+loaders (host clock): near 1, the loader starves the device.
 
 ``--num_devices N`` trains data-parallel on N devices, one process each,
 started here (``parallel.mesh.spawn``; NCCL on CUDA, gloo with ``--device
@@ -272,6 +277,7 @@ def _train(world, device, args, cfg, dataset, tgt_dataset) -> int:
     from scda_tpu_torch.train.state import create_train_state
     from scda_tpu_torch.train.steps import make_train_step
     from scda_tpu_torch.utils.logging import MetricsLogger
+    from scda_tpu_torch.utils.profile import span
 
     main_rank = world is None or world.is_main
 
@@ -349,17 +355,34 @@ def _train(world, device, args, cfg, dataset, tgt_dataset) -> int:
     prof = None
     start_step = step = state.step
     win_t0, win_step0 = time.perf_counter(), step
+    waited = 0.0
     t_train0 = first_step = None
+
+    def fetch(batches):
+        """The next batch of ``batches`` (None at its end), and the
+        seconds spent waiting for it."""
+        t0 = time.perf_counter()
+        with span("data.wait"):
+            batch = next(batches, None)
+        return batch, time.perf_counter() - t0
+
+    def to_device(arrays):
+        with span("data.h2d"):
+            return [torch.from_numpy(a).to(device) for a in arrays]
+
     while step < total_steps:
-        for batch in loader:
-            if step >= total_steps:
+        batches = iter(loader)
+        while True:
+            batch, dt = fetch(batches)
+            waited += dt
+            if batch is None or step >= total_steps:
                 break
-            tensors = [torch.from_numpy(a).to(device) for a in (
-                batch.image, batch.im_info, batch.gt_boxes, batch.num_boxes)]
+            tensors = to_device((batch.image, batch.im_info, batch.gt_boxes,
+                                 batch.num_boxes))
             if tgt_iter is not None:
-                tb = next(tgt_iter)
-                tensors += [torch.from_numpy(a).to(device)
-                            for a in (tb.image, tb.im_info)]
+                tb, dt = fetch(tgt_iter)
+                waited += dt
+                tensors += to_device((tb.image, tb.im_info))
             state, metrics = step_fn(state, *tensors)
             step = state.step
             if args.profile and main_rank and step == 3:
@@ -373,7 +396,8 @@ def _train(world, device, args, cfg, dataset, tgt_dataset) -> int:
                 if step > win_step0:
                     m["img_per_sec"] = (step - win_step0) * args.bs / (
                         now - win_t0)
-                win_t0, win_step0 = now, step
+                m["data_wait_frac"] = waited / (now - win_t0)
+                win_t0, win_step0, waited = now, step, 0.0
                 if t_train0 is None:   # the first step builds the kernels
                     t_train0, first_step = now, step
                 logger.log(step, m)

@@ -15,6 +15,7 @@ values and gradients.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -29,6 +30,10 @@ from scda_tpu_torch.models.targets import (
     AnchorTargets, RoiSamples, anchor_targets, proposal_targets,
 )
 from scda_tpu_torch.ops.nms import batched_nms
+from scda_tpu_torch.utils.profile import span
+
+# The ``req`` id of the ``scda.serve`` spans: this process's served batches.
+_requests = itertools.count()
 
 
 def _pool_ms(model: FasterRCNN, feat_fine: torch.Tensor,
@@ -138,34 +143,43 @@ def forward_train(
     ``rngs`` are expected to be this rank's row shards."""
     mc = cfg.model
     draws = draws or {}
-    if mc.multiscale_roi:
-        feat_fine, feat = model.features_pyramid(image)
-    else:
-        feat_fine, feat = None, model.features(image)
-    rpn_cls, rpn_bbox = model.rpn_out(feat)
-    anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]), feat.device)
+    with span("backbone"):
+        if mc.multiscale_roi:
+            feat_fine, feat = model.features_pyramid(image)
+        else:
+            feat_fine, feat = None, model.features(image)
+    with span("rpn"):
+        rpn_cls, rpn_bbox = model.rpn_out(feat)
+        anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]),
+                               feat.device)
     props = propose(rpn_cls, rpn_bbox, anchors, im_info, cfg.train.proposal)
 
-    a_tgts = anchor_targets(anchors, gt_boxes, num_boxes, im_info,
-                            cfg.train.rpn_target, rngs.anchor,
-                            draws=draws.get("anchor"))
-    rpn_cls_loss, rpn_box_loss = _rpn_losses(rpn_cls, rpn_bbox, a_tgts, world)
+    with span("targets"), span("targets.anchor"):
+        a_tgts = anchor_targets(anchors, gt_boxes, num_boxes, im_info,
+                                cfg.train.rpn_target, rngs.anchor,
+                                draws=draws.get("anchor"))
+    with span("head"):
+        rpn_cls_loss, rpn_box_loss = _rpn_losses(rpn_cls, rpn_bbox, a_tgts,
+                                                 world)
 
-    samples = proposal_targets(props.boxes, props.valid, gt_boxes, num_boxes,
-                               cfg.train.roi_target, rngs.roi,
-                               draws=draws.get("roi"))
+    with span("targets"), span("targets.roi"):
+        samples = proposal_targets(props.boxes, props.valid, gt_boxes,
+                                   num_boxes, cfg.train.roi_target, rngs.roi,
+                                   draws=draws.get("roi"))
     bs, s = samples.labels.shape
-    if mc.multiscale_roi:
-        pooled = _pool_ms(model, feat_fine, feat, samples.rois, mc)
-    else:
-        pooled = pool_rois(feat, samples.rois, None, mc)
-    cls_logits, bbox_deltas = model.roi_head(pooled, train=True,
-                                             generator=rngs.dropout)
-    rcnn_cls_loss, rcnn_box_loss = _rcnn_losses(
-        cls_logits, bbox_deltas, samples, mc.num_classes, mc.class_agnostic,
-        world)
+    with span("roi"):
+        if mc.multiscale_roi:
+            pooled = _pool_ms(model, feat_fine, feat, samples.rois, mc)
+        else:
+            pooled = pool_rois(feat, samples.rois, None, mc)
+    with span("head"):
+        cls_logits, bbox_deltas = model.roi_head(pooled, train=True,
+                                                 generator=rngs.dropout)
+        rcnn_cls_loss, rcnn_box_loss = _rcnn_losses(
+            cls_logits, bbox_deltas, samples, mc.num_classes,
+            mc.class_agnostic, world)
 
-    total = rpn_cls_loss + rpn_box_loss + rcnn_cls_loss + rcnn_box_loss
+        total = rpn_cls_loss + rpn_box_loss + rcnn_cls_loss + rcnn_box_loss
     fg_cnt = samples.fg_mask.sum()
     metrics = {
         "loss": total, "rpn_cls": rpn_cls_loss, "rpn_box": rpn_box_loss,
@@ -190,58 +204,62 @@ def postprocess(props: Proposals, cls_logits: torch.Tensor,
     """Head outputs -> detections: per-class decode, score threshold,
     per-class NMS (``test.nms_thresh``), then the global top
     ``max_per_image`` across classes, unscaled to original image coords."""
-    mc, tc = cfg.model, cfg.test
-    b, n, _ = props.boxes.shape
-    num_classes = mc.num_classes
-    probs = torch.softmax(cls_logits.reshape(b, n, num_classes), dim=-1)
+    with span("postprocess"):
+        mc, tc = cfg.model, cfg.test
+        b, n, _ = props.boxes.shape
+        num_classes = mc.num_classes
+        probs = torch.softmax(cls_logits.reshape(b, n, num_classes), dim=-1)
 
-    if tc.bbox_reg:
-        if mc.class_agnostic:
-            deltas = bbox_deltas.reshape(b, n, 1, 4).expand(b, n, num_classes, 4)
+        if tc.bbox_reg:
+            if mc.class_agnostic:
+                deltas = bbox_deltas.reshape(b, n, 1, 4).expand(
+                    b, n, num_classes, 4)
+            else:
+                deltas = bbox_deltas.reshape(b, n, num_classes, 4)
+            stds = torch.tensor(cfg.train.roi_target.bbox_normalize_stds,
+                                dtype=torch.float32, device=deltas.device)
+            means = torch.tensor(cfg.train.roi_target.bbox_normalize_means,
+                                 dtype=torch.float32, device=deltas.device)
+            deltas = deltas * stds + means
+            boxes = box_ops.bbox_transform_inv(props.boxes[:, :, None, :],
+                                               deltas)
+            boxes = box_ops.clip_boxes(boxes, im_info[:, 0, None, None],
+                                       im_info[:, 1, None, None])
         else:
-            deltas = bbox_deltas.reshape(b, n, num_classes, 4)
-        stds = torch.tensor(cfg.train.roi_target.bbox_normalize_stds,
-                            dtype=torch.float32, device=deltas.device)
-        means = torch.tensor(cfg.train.roi_target.bbox_normalize_means,
-                             dtype=torch.float32, device=deltas.device)
-        deltas = deltas * stds + means
-        boxes = box_ops.bbox_transform_inv(props.boxes[:, :, None, :], deltas)
-        boxes = box_ops.clip_boxes(boxes, im_info[:, 0, None, None],
-                                   im_info[:, 1, None, None])
-    else:
-        boxes = props.boxes[:, :, None, :].expand(b, n, num_classes, 4)
+            boxes = props.boxes[:, :, None, :].expand(b, n, num_classes, 4)
 
-    # Per-class NMS over the foreground classes as one (B*C) batch.
-    fg = num_classes - 1
-    d_cls = tc.max_dets_per_class
-    cls_boxes = boxes[:, :, 1:, :].permute(0, 2, 1, 3).reshape(b * fg, n, 4)
-    cls_scores = probs[:, :, 1:].permute(0, 2, 1).reshape(b * fg, n)
-    cand_valid = (props.valid[:, None, :].expand(b, fg, n).reshape(b * fg, n)
-                  & (cls_scores > tc.score_thresh))
-    res = batched_nms(cls_boxes, cls_scores, iou_threshold=tc.nms_thresh,
-                      max_output=d_cls, valid=cand_valid)
-    kept_boxes = torch.gather(cls_boxes, 1,
-                              res.indices[..., None].expand(-1, -1, 4))
-    kept_scores = torch.gather(cls_scores, 1, res.indices)
-    kept_scores = torch.where(res.valid, kept_scores,
-                              torch.full_like(kept_scores, -1.0))
+        # Per-class NMS over the foreground classes as one (B*C) batch.
+        fg = num_classes - 1
+        d_cls = tc.max_dets_per_class
+        cls_boxes = boxes[:, :, 1:, :].permute(0, 2, 1, 3).reshape(
+            b * fg, n, 4)
+        cls_scores = probs[:, :, 1:].permute(0, 2, 1).reshape(b * fg, n)
+        cand_valid = (props.valid[:, None, :].expand(b, fg, n)
+                      .reshape(b * fg, n) & (cls_scores > tc.score_thresh))
+        res = batched_nms(cls_boxes, cls_scores, iou_threshold=tc.nms_thresh,
+                          max_output=d_cls, valid=cand_valid)
+        kept_boxes = torch.gather(cls_boxes, 1,
+                                  res.indices[..., None].expand(-1, -1, 4))
+        kept_scores = torch.gather(cls_scores, 1, res.indices)
+        kept_scores = torch.where(res.valid, kept_scores,
+                                  torch.full_like(kept_scores, -1.0))
 
-    # Global cap across classes; the stable sort breaks ties toward the
-    # lower index, as lax.top_k does.
-    d = fg * d_cls
-    flat_boxes = kept_boxes.reshape(b, d, 4)
-    flat_scores = kept_scores.reshape(b, d)
-    flat_classes = torch.arange(1, num_classes, device=flat_scores.device)
-    flat_classes = flat_classes.repeat_interleave(d_cls).expand(b, d)
-    k = min(tc.max_per_image, d)
-    top_scores, top_idx = torch.sort(flat_scores, dim=-1, descending=True,
-                                     stable=True)
-    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-    db = torch.gather(flat_boxes, 1, top_idx[..., None].expand(b, k, 4))
-    dc = torch.gather(flat_classes, 1, top_idx)
-    db = db / im_info[:, 2][:, None, None]
-    return Detections(boxes=db, scores=top_scores, classes=dc,
-                      valid=top_scores > 0)
+        # Global cap across classes; the stable sort breaks ties toward the
+        # lower index, as lax.top_k does.
+        d = fg * d_cls
+        flat_boxes = kept_boxes.reshape(b, d, 4)
+        flat_scores = kept_scores.reshape(b, d)
+        flat_classes = torch.arange(1, num_classes, device=flat_scores.device)
+        flat_classes = flat_classes.repeat_interleave(d_cls).expand(b, d)
+        k = min(tc.max_per_image, d)
+        top_scores, top_idx = torch.sort(flat_scores, dim=-1, descending=True,
+                                         stable=True)
+        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+        db = torch.gather(flat_boxes, 1, top_idx[..., None].expand(b, k, 4))
+        dc = torch.gather(flat_classes, 1, top_idx)
+        db = db / im_info[:, 2][:, None, None]
+        return Detections(boxes=db, scores=top_scores, classes=dc,
+                          valid=top_scores > 0)
 
 
 @torch.no_grad()
@@ -255,16 +273,22 @@ def forward_inference(model: FasterRCNN, image: torch.Tensor,
     :func:`postprocess`.
     """
     mc = cfg.model
-    if mc.multiscale_roi:
-        feat_fine, feat = model.features_pyramid(image)
-    else:
-        feat_fine, feat = None, model.features(image)
-    rpn_cls, rpn_bbox = model.rpn_out(feat)
-    anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]), feat.device)
-    props = propose(rpn_cls, rpn_bbox, anchors, im_info, cfg.test.proposal)
-    if mc.multiscale_roi:
-        pooled = _pool_ms(model, feat_fine, feat, props.boxes, mc)
-    else:
-        pooled = pool_rois(feat, props.boxes, None, mc)
-    cls_logits, bbox_deltas = model.roi_head(pooled, train=False)
-    return postprocess(props, cls_logits, bbox_deltas, im_info, cfg)
+    with span("serve", req=next(_requests)):
+        with span("backbone"):
+            if mc.multiscale_roi:
+                feat_fine, feat = model.features_pyramid(image)
+            else:
+                feat_fine, feat = None, model.features(image)
+        with span("rpn"):
+            rpn_cls, rpn_bbox = model.rpn_out(feat)
+            anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]),
+                                   feat.device)
+        props = propose(rpn_cls, rpn_bbox, anchors, im_info, cfg.test.proposal)
+        with span("roi"):
+            if mc.multiscale_roi:
+                pooled = _pool_ms(model, feat_fine, feat, props.boxes, mc)
+            else:
+                pooled = pool_rois(feat, props.boxes, None, mc)
+        with span("head"):
+            cls_logits, bbox_deltas = model.roi_head(pooled, train=False)
+        return postprocess(props, cls_logits, bbox_deltas, im_info, cfg)

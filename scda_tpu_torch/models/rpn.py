@@ -19,6 +19,7 @@ from torch import nn
 from scda_tpu_torch.config import ProposalConfig
 from scda_tpu_torch.core import boxes as box_ops
 from scda_tpu_torch.ops.nms import batched_nms
+from scda_tpu_torch.utils.profile import span
 
 
 class RPNHead(nn.Module):
@@ -69,34 +70,38 @@ def propose(
     -> top ``pre_nms_top_n`` -> NMS -> ``post_nms_top_n`` slots with a
     validity mask.  Runs without gradients, as the reference's proposal
     layer does."""
-    b = rpn_cls_logits.shape[0]
-    k = anchors.shape[0]
-    scores = torch.softmax(rpn_cls_logits, dim=-1)[..., 1].reshape(b, k)
-    deltas = rpn_bbox_pred.reshape(b, k, 4)
+    with span("propose"):
+        b = rpn_cls_logits.shape[0]
+        k = anchors.shape[0]
+        scores = torch.softmax(rpn_cls_logits, dim=-1)[..., 1].reshape(b, k)
+        deltas = rpn_bbox_pred.reshape(b, k, 4)
 
-    boxes = box_ops.bbox_transform_inv(anchors[None], deltas)
-    boxes = box_ops.clip_boxes(boxes, im_info[:, 0:1], im_info[:, 1:2])
-    ws = boxes[..., 2] - boxes[..., 0] + box_ops.LEGACY_PLUS_ONE
-    hs = boxes[..., 3] - boxes[..., 1] + box_ops.LEGACY_PLUS_ONE
-    min_size = cfg.min_size * im_info[:, 2:3]
-    size_ok = (ws >= min_size) & (hs >= min_size)
-    scores = torch.where(size_ok, scores, torch.full_like(scores, -1e30))
+        boxes = box_ops.bbox_transform_inv(anchors[None], deltas)
+        boxes = box_ops.clip_boxes(boxes, im_info[:, 0:1], im_info[:, 1:2])
+        ws = boxes[..., 2] - boxes[..., 0] + box_ops.LEGACY_PLUS_ONE
+        hs = boxes[..., 3] - boxes[..., 1] + box_ops.LEGACY_PLUS_ONE
+        min_size = cfg.min_size * im_info[:, 2:3]
+        size_ok = (ws >= min_size) & (hs >= min_size)
+        scores = torch.where(size_ok, scores, torch.full_like(scores, -1e30))
 
-    pre_n = min(cfg.pre_nms_top_n, k)
-    top_scores, top_idx = torch.sort(scores, dim=-1, descending=True,
-                                     stable=True)
-    top_scores, top_idx = top_scores[:, :pre_n], top_idx[:, :pre_n]
-    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(b, pre_n, 4))
-    top_valid = top_scores > -1e29
+        pre_n = min(cfg.pre_nms_top_n, k)
+        top_scores, top_idx = torch.sort(scores, dim=-1, descending=True,
+                                         stable=True)
+        top_scores, top_idx = top_scores[:, :pre_n], top_idx[:, :pre_n]
+        top_boxes = torch.gather(boxes, 1,
+                                 top_idx[..., None].expand(b, pre_n, 4))
+        top_valid = top_scores > -1e29
 
-    # The sort already put the rows in descending order, invalid last.
-    res = batched_nms(top_boxes, top_scores, iou_threshold=cfg.nms_thresh,
-                      max_output=cfg.post_nms_top_n, valid=top_valid,
-                      pre_sorted=True)
-    out_boxes = torch.gather(top_boxes, 1,
-                             res.indices[..., None].expand(-1, -1, 4))
-    out_scores = torch.gather(top_scores, 1, res.indices)
-    out_boxes = torch.where(res.valid[..., None], out_boxes,
-                            torch.zeros_like(out_boxes))
-    out_scores = torch.where(res.valid, out_scores, torch.zeros_like(out_scores))
-    return Proposals(boxes=out_boxes, scores=out_scores, valid=res.valid)
+        # The sort already put the rows in descending order, invalid last.
+        res = batched_nms(top_boxes, top_scores,
+                          iou_threshold=cfg.nms_thresh,
+                          max_output=cfg.post_nms_top_n, valid=top_valid,
+                          pre_sorted=True)
+        out_boxes = torch.gather(top_boxes, 1,
+                                 res.indices[..., None].expand(-1, -1, 4))
+        out_scores = torch.gather(top_scores, 1, res.indices)
+        out_boxes = torch.where(res.valid[..., None], out_boxes,
+                                torch.zeros_like(out_boxes))
+        out_scores = torch.where(res.valid, out_scores,
+                                 torch.zeros_like(out_scores))
+        return Proposals(boxes=out_boxes, scores=out_scores, valid=res.valid)

@@ -13,6 +13,12 @@ because a CUDA tensor has no other path.  ``torch.utils.cpp_extension``
 is not used: a source that includes PyTorch's headers takes minutes to
 compile, these take seconds.
 
+``first_use`` records, on the host clock, what the library's first use
+cost this process: ``load_s``, the seconds of the first :func:`lib`
+(finding or building the library, then loading it), and ``built``, true
+where nvcc ran here.  The benchmark reads it as ``kernel_load_s``, a part
+of its ``setup_s``.
+
 Every C entry point takes raw device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches;
 :func:`check` turns a nonzero code into an exception.
@@ -27,6 +33,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -42,6 +49,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _fns: dict = {}
+first_use: dict = {"load_s": None, "built": False}
 
 
 def sources() -> list:
@@ -77,6 +85,7 @@ def build() -> str:
     path = lib_path()
     if os.path.exists(path):
         return path
+    first_use["built"] = True
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     cu = [p for p in sources() if p.endswith(".cu")]
@@ -118,9 +127,11 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter()
             _lib = ctypes.CDLL(build())
             _lib.scda_cuda_error_string.argtypes = [ctypes.c_int]
             _lib.scda_cuda_error_string.restype = ctypes.c_char_p
+            first_use["load_s"] = time.perf_counter() - t0
         return _lib
 
 

@@ -40,11 +40,13 @@ call ends; :func:`chain_bwd_launcher` hands them back for checks.
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 import torch.nn.functional as F
 
 from scda_tpu_torch.ops.kernels import _build
+from scda_tpu_torch.utils.profile import span, span_ids
 
 
 def bn_root(var: torch.Tensor, eps: float) -> torch.Tensor:
@@ -461,21 +463,28 @@ def bottleneck_chain_bwd(x, w1, b1, w2, b2, w3, b3, g, *,
 
 class _BottleneckChain(torch.autograd.Function):
     """Forward: K4.  Backward: the K4 backward kernel in f32 on the inputs
-    rounded to ``dtype`` (the plain twins on the CPU)."""
+    rounded to ``dtype`` (the plain twins on the CPU), inside a
+    ``scda.k4.bwd`` span with the ids ``ids`` of its forward's."""
 
     @staticmethod
-    def forward(ctx, dtype, x, *ws):
-        ctx.dtype = dtype
+    def forward(ctx, dtype, ids, x, *ws):
+        ctx.dtype, ctx.ids = dtype, ids
         ctx.save_for_backward(x, *ws)
         return bottleneck_chain_fwd(x, *ws, dtype=dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, *ws = ctx.saved_tensors
-        grads = bottleneck_chain_bwd(x, *ws, g, dtype=ctx.dtype,
-                                     needs=ctx.needs_input_grad[1:])
-        return (None,) + tuple(None if gr is None else gr.to(t.dtype)
-                               for gr, t in zip(grads, (x, *ws)))
+        with span("k4.bwd", **(ctx.ids or {})):
+            grads = bottleneck_chain_bwd(x, *ws, g, dtype=ctx.dtype,
+                                         needs=ctx.needs_input_grad[2:])
+            return (None, None) + tuple(
+                None if gr is None else gr.to(t.dtype)
+                for gr, t in zip(grads, (x, *ws)))
+
+
+# The ``call`` id of the ``scda.k4`` spans: this process's K4 calls.
+_calls = itertools.count()
 
 
 def bottleneck_chain(x, w1, b1, w2, b2, w3, b3, *, dtype=torch.bfloat16):
@@ -483,8 +492,13 @@ def bottleneck_chain(x, w1, b1, w2, b2, w3, b3, *, dtype=torch.bfloat16):
     of :func:`fold_bottleneck_params`; returns (B, H, W, C) contiguous in
     ``dtype`` (float32 or bfloat16), differentiable in x and every
     weight.  CPU tensors take the plain twin; CUDA tensors launch the
-    kernel, which needs C and F multiples of 64."""
-    return _BottleneckChain.apply(dtype, x, w1, b1, w2, b2, w3, b3)
+    kernel, which needs C and F multiples of 64.  Under a profiler the
+    call is a ``scda.k4`` span whose ``call`` (this process's ordinal)
+    and ``stage`` (the width F: 64, 128, 256 for ResNet's layer1-3) its
+    backward's ``scda.k4.bwd`` carries too."""
+    ids = span_ids(call=next(_calls), stage=int(w1.shape[-1]))
+    with span("k4", **(ids or {})):
+        return _BottleneckChain.apply(dtype, ids, x, w1, b1, w2, b2, w3, b3)
 
 
 bottleneck_chain.launches = 0

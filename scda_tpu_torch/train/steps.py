@@ -25,6 +25,7 @@ from scda_tpu_torch.models.detector import (
 )
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
 from scda_tpu_torch.train.state import TrainState
+from scda_tpu_torch.utils.profile import span
 
 
 def check_train_config(cfg: Config, device: torch.device) -> None:
@@ -99,18 +100,22 @@ def make_train_step(model: FasterRCNN, cfg: Config, world=None):
 
     def step(state: TrainState, image, im_info, gt_boxes, num_boxes,
              draws: Optional[Dict[str, torch.Tensor]] = None):
-        rngs = step_generators(seed, state.step, device)
-        if world is not None:
-            rngs = StepGenerators(*map(world.shard, rngs))
-        out = forward_train(state.model, image, im_info, gt_boxes, num_boxes,
-                            cfg, rngs, draws=draws, world=world)
-        names, params = state.trainable()
-        grads = torch.autograd.grad(out.loss, params, materialize_grads=True)
-        metrics = {k: v.detach() for k, v in out.metrics.items()}
-        if world is not None:
-            grads = world.sum_tensors(grads)
-            metrics = world.sum_metrics(metrics)
-        state.apply_gradients(dict(zip(names, grads)))
+        with span("train_step", step=state.step):
+            rngs = step_generators(seed, state.step, device)
+            if world is not None:
+                rngs = StepGenerators(*map(world.shard, rngs))
+            out = forward_train(state.model, image, im_info, gt_boxes,
+                                num_boxes, cfg, rngs, draws=draws, world=world)
+            names, params = state.trainable()
+            with span("backward"):
+                grads = torch.autograd.grad(out.loss, params,
+                                            materialize_grads=True)
+            metrics = {k: v.detach() for k, v in out.metrics.items()}
+            if world is not None:
+                grads = world.sum_tensors(grads)
+                metrics = world.sum_metrics(metrics)
+            with span("optimizer"):
+                state.apply_gradients(dict(zip(names, grads)))
         return state, metrics
 
     return step

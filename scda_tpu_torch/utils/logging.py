@@ -75,28 +75,3 @@ class MetricsLogger:
         if self._tb is not None:
             self._tb.close()
 
-
-class StepTimer:
-    """Per-step wall-clock timing with warmup-excluded averages
-    (the benchmark harness the reference lacked)."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.times = []
-        self._last = None
-
-    def start(self) -> None:
-        self._last = time.perf_counter()
-
-    def stop(self) -> float:
-        dt = time.perf_counter() - self._last
-        self.times.append(dt)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        t = self.times[self.warmup:] or self.times
-        return sum(t) / max(len(t), 1)
-
-    def images_per_sec(self, batch_size: int) -> float:
-        return batch_size / self.mean if self.times else 0.0

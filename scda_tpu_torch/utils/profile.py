@@ -1,4 +1,5 @@
-"""Per-layer numbers of a run on the card, from one ``torch.profiler`` pass.
+"""Per-layer numbers of a run on the card, from one ``torch.profiler`` pass,
+and the program's spans that mark its layers in such a pass.
 
 :func:`profile_pass` profiles a few units of work (served images or train
 steps) and returns device time and kernels per unit, the share of each
@@ -7,10 +8,44 @@ ten longest kernels, and the device busy share.  ``chip_smoke.py`` and
 ``bench_torch.py`` read the per-layer numbers of their paths from it.
 The profiler slows the host about twofold, so the busy share divides the
 profiled device time by a wall time the caller measured without it.
+
+:func:`span` marks a layer of the program: a ``scda.<name>`` range that
+exists only while a ``torch.profiler`` records, so that an unprofiled run
+pays one check of the profiler's state (under 1 us) a span.  Under the
+profiler each span is a host range in the same trace and on the same
+clock as the kernels, which the runtime calls inside it link to by their
+correlation ids.  Its ids (step, request, K4 call) are its keyword
+inputs, shown where the profiler records shapes.  :func:`span_times` and
+:func:`span_syncs` read a pass's events by span.
+
+| Span | Where | Work under it |
+|---|---|---|
+| ``scda.train_step`` (``step``) | ``train.steps.make_train_step``'s step | the supervised step |
+| ``scda.scda_step`` (``step``) | ``adapt.scda.make_scda_train_step``'s step | the SCDA step |
+| ``scda.serve`` (``req``) | ``models.detector.forward_inference`` | one served batch |
+| ``scda.backbone`` | ``features`` / ``features_pyramid`` of the source or served image | K3, cuDNN, K4 |
+| ``scda.rpn`` | ``rpn_out`` and ``make_anchors`` | the RPN head |
+| ``scda.propose`` | ``models.rpn.propose`` | K1, sort, top-k |
+| ``scda.targets`` > ``.anchor``, ``.roi`` | ``anchor_targets``; ``proposal_targets`` | samplers, target encoding |
+| ``scda.roi`` | ``pool_rois`` / ``_pool_ms`` of the sampled rois or proposals | K2 |
+| ``scda.head`` | ``roi_head`` and the losses | fc6/fc7 or layer4, losses |
+| ``scda.postprocess`` | ``models.detector.postprocess`` | decode, per-class K1, top-k |
+| ``scda.adapt`` > ``.target``, ``.mine``, ``.patches``, ``.disc`` | ``adapt.scda``: the target tower, mining, region patches, discriminator and BCE | the SCDA layer's forward |
+| ``scda.adapt.bwd`` (``step``) | from the adversarial loss's autograd node to the detection loss's | the SCDA layer's backward |
+| ``scda.backward``; ``scda.optimizer`` | ``torch.autograd.grad``; ``apply_gradients`` | the backward; both optimizers |
+| ``scda.k4`` (``call``, ``stage``); ``scda.k4.bwd`` (the same) | ``ops.kernels.bottleneck_kernel.bottleneck_chain``; its backward | K4; K4's backward |
+| ``scda.data.wait``; ``scda.data.h2d`` | ``cli.trainval``'s loop | the loader's next batch; its copy |
+
+A span carries the ids of the spans around it on its thread, so every
+span of a step has its ``step``; the backward spans, which run on
+autograd's thread on the card, carry the ids their forward saw.
 """
 
 from __future__ import annotations
 
+import bisect
+import contextlib
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -117,3 +152,124 @@ def profile_pass(run: Callable[[], object], units: int,
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     return summarize(rows, units, wall_ms_per_unit)
+
+
+# ---- spans -----------------------------------------------------------------
+
+SPAN_PREFIX = "scda."
+# The host calls that block until the device has caught up: these four
+# always, and a ``cudaMemcpyAsync`` whose copy runs device to host.
+BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+            "cudaEventSynchronize", "cudaMemcpy")
+
+_OFF = contextlib.nullcontext()
+_local = threading.local()
+
+
+class _Span:
+    """An open ``scda.*`` host range whose keyword inputs are its ids,
+    merged over those of the spans around it on the thread that enters
+    it; they are that thread's ids until it exits.  The range is a plain
+    record (torch 2.4 on), not a user annotation: a user annotation takes
+    the kernels launched inside it from the annotations around it, the
+    benchmark's ``bench.*`` ranges among them."""
+
+    __slots__ = ("name", "ids", "outer", "rf")
+
+    def __init__(self, name: str, ids: dict):
+        self.name, self.ids = SPAN_PREFIX + name, ids
+
+    def __enter__(self):
+        self.outer = getattr(_local, "ids", {})
+        merged = {**self.outer, **self.ids}
+        self.rf = torch._C._profiler._RecordFunctionFast(self.name, (), merged)
+        self.rf.__enter__()
+        _local.ids = merged
+        return self
+
+    def __exit__(self, *exc):
+        _local.ids = self.outer
+        self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, **ids):
+    """``scda.<name>`` as a context manager while a ``torch.profiler``
+    records; otherwise one shared ``contextlib.nullcontext``."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, ids)
+
+
+def span_ids(**ids) -> Optional[dict]:
+    """The ids a span opened here with ``ids`` would carry, for a span
+    that opens later on another thread (a backward); None while no
+    profiler records."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    return {**getattr(_local, "ids", {}), **ids}
+
+
+def _is_device(e) -> bool:
+    return getattr(e.device_type, "name", str(e.device_type)) == "CUDA"
+
+
+def _interval(e) -> Tuple[float, float]:
+    return float(e.time_range.start), float(e.time_range.end)
+
+
+def span_times(events, prefix: str = SPAN_PREFIX) -> Dict[str, float]:
+    """Device ms of the work launched inside each ``prefix`` span, summed
+    by name over its instances: every kernel, copy or fill whose host
+    call (the runtime call with its correlation id) starts while the span
+    is open, on any thread, so that a step's span holds the kernels
+    autograd's thread launches for it.  A kernel counts in every span
+    around it."""
+    launched = {e.id: _interval(e)[0] for e in events
+                if not _is_device(e) and e.name.startswith("cu")}
+    work = sorted((launched[e.id], (_interval(e)[1] - _interval(e)[0]) / 1e3)
+                  for e in events if _is_device(e) and e.id in launched
+                  and not getattr(e, "is_user_annotation", False))
+    starts = [t for t, _ in work]
+    total = [0.0]
+    for _, ms in work:
+        total.append(total[-1] + ms)
+    out: Dict[str, float] = {}
+    for e in events:
+        if _is_device(e) or not e.name.startswith(prefix):
+            continue
+        s0, s1 = _interval(e)
+        ms = (total[bisect.bisect_right(starts, s1)]
+              - total[bisect.bisect_left(starts, s0)])
+        out[e.name] = out.get(e.name, 0.0) + ms
+    return out
+
+
+def blocking_calls(events) -> list:
+    """The host-side CUDA runtime calls of ``events`` that block the host
+    (:data:`BLOCKING`, and each ``cudaMemcpyAsync`` whose device copy,
+    found by its correlation id, runs device to host)."""
+    d2h = {e.id for e in events if _is_device(e) and "DtoH" in e.name}
+    return [e for e in events if not _is_device(e)
+            and (e.name in BLOCKING
+                 or (e.name == "cudaMemcpyAsync" and e.id in d2h))]
+
+
+def span_syncs(events, prefix: str = SPAN_PREFIX) -> Dict[str, int]:
+    """By span name, the blocking calls (:func:`blocking_calls`) made on
+    the span's thread while it was open (a call counts in every span
+    around it)."""
+    out: Dict[str, int] = {}
+    by_thread: Dict[int, List[float]] = {}
+    for c in blocking_calls(events):
+        by_thread.setdefault(c.thread, []).append(_interval(c)[0])
+    for calls in by_thread.values():
+        calls.sort()
+    for e in events:
+        if _is_device(e) or not e.name.startswith(prefix):
+            continue
+        calls = by_thread.get(e.thread, [])
+        s0, s1 = _interval(e)
+        n = bisect.bisect_right(calls, s1) - bisect.bisect_left(calls, s0)
+        out[e.name] = out.get(e.name, 0) + n
+    return out

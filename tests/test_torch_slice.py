@@ -582,7 +582,7 @@ def test_port_sources_name_no_jax_package():
     scripts = [os.path.join(REPO, "scripts_torch", f)
                for f in sorted(os.listdir(os.path.join(REPO, "scripts_torch")))
                if f.endswith((".py", ".sh"))]
-    assert len(paths) > 30 and len(scripts) == 10
+    assert len(paths) > 30 and len(scripts) == 11
     bad = []
     for path in paths + scripts:
         with open(path) as f:

@@ -542,7 +542,8 @@ class Port:
         )
         from scda_tpu_torch.ops import nms, roi_ops
         from scda_tpu_torch.ops.kernels import (
-            bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel,
+            bottleneck_kernel, nms_kernel, roi_align_kernel, sgd_kernel,
+            stem_kernel,
         )
         from scda_tpu_torch.cli import demo, test_net, trainval
         from scda_tpu_torch.parallel import mesh
@@ -574,6 +575,7 @@ class Port:
         self.steps, self.flops = steps, flops
         self.bk, self.nk, self.rk, self.sk = (
             bottleneck_kernel, nms_kernel, roi_align_kernel, stem_kernel)
+        self.sgd = sgd_kernel
         # Each train path's median img/s in this run (``train_run``): the
         # tools path prints the loader's rates beside VGG16's at bs 8.
         self.run_rates = {}
@@ -583,7 +585,8 @@ class Port:
                          "vgg_stem": stem_kernel.vgg_stem_fused,
                          "bottleneck_chain": bottleneck_kernel.bottleneck_chain,
                          "bottleneck_chain_bwd":
-                             bottleneck_kernel.bottleneck_chain_bwd}
+                             bottleneck_kernel.bottleneck_chain_bwd,
+                         "sgd_chain": sgd_kernel.sgd_chain}
 
     def serving_cfgs(self, preset, **model):
         """(f32, bf16) configs of a preset at the canvas, bf16 weights."""
@@ -1083,7 +1086,7 @@ class Port:
             return step(state, *batches[i % len(batches)], *tgt)
 
         before = self.fixed_losses(model, cfg, batches[0])
-        records = {}
+        records, sgd_inputs = {}, {}
         for i in range(warmup):
             if i == 0 and record:
                 with Recorder(self.nms, "nms_sorted") as rec_nms, \
@@ -1100,10 +1103,18 @@ class Port:
                            "bottleneck_chain": rec_chain.calls}
                 m = first
             else:
-                state, m = run(state, i)
+                # The optimizer's inputs of the last warm-up step (its
+                # momenta nonzero), for ``sgd_checks``.
+                with (Recorder(self.sgd, "sgd_chain",
+                               self.sgd_snapshot(sgd_inputs))
+                      if record and i == warmup - 1
+                      else contextlib.nullcontext()):
+                    state, m = run(state, i)
                 first = m if i == 0 else first
             if on_step:
                 on_step(m)
+        if record:
+            records["sgd_chain"] = sgd_inputs
         torch.cuda.synchronize()
         for w in self.wrappers.values():
             w.launches = 0
@@ -1161,6 +1172,22 @@ class Port:
 
         self.profile_pass(three_steps, 3, path, 1e3 * bs / median(rates))
         return launches, records
+
+    def sgd_snapshot(self, into):
+        """A stand-in for ``sgd_chain`` that puts copies of what the call
+        is given (parameters, momenta and gradients before the step, each
+        tensor's rule, the clip, the momentum factors and rates) in
+        ``into``, then makes the call."""
+        orig = self.sgd.sgd_chain
+
+        def snapshot(tables, grads, **kw):
+            into.update(params=[t.clone() for t in tables.params],
+                        momenta=[t.clone() for t in tables.momenta],
+                        grads=[t.clone() for t in grads], rules=tables.rules,
+                        clip=tables.clip, kw=kw)
+            return orig(tables, grads, **kw)
+
+        return snapshot
 
     def check_roi_bwd(self, calls, allow_zero=False):
         """The K2 backward on recorded calls (labelled by batch size and
@@ -1498,7 +1525,7 @@ def vgg16_path(port, device, frames):
                               "vgg16")
     n = VGG_REPEATS * len(images)
     want = {"nms": 2 * n, "roi_align": n, "roi_align_bwd": 0, "vgg_stem": n,
-            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0}
+            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0, "sgd_chain": 0}
     require(launches == want,
             f"VGG16 path launches {launches}, expected {want}")
 
@@ -1556,7 +1583,8 @@ def res101_ms_path(port, device, frames):
                               "res101_ms")
     n = RES_REPEATS * len(images)
     want = {"nms": 2 * n, "roi_align": 2 * n, "roi_align_bwd": 0,
-            "vgg_stem": 0, "bottleneck_chain": 3 * n, "bottleneck_chain_bwd": 0}
+            "vgg_stem": 0, "bottleneck_chain": 3 * n, "bottleneck_chain_bwd": 0,
+            "sgd_chain": 0}
     require(launches == want,
             f"res101-ms path launches {launches}, expected {want}")
 
@@ -1628,9 +1656,10 @@ def runs_twice(port, cfg, make_model, batches, what, tgt_batches=None):
 
 
 def train_kernel_checks(port, records, path, tag="train"):
-    """K1 at the training shape, K3 at the train batch and the K2
-    backward, each against its twin on the inputs one recorded train step
-    gave it, with times.  ``tag`` prefixes the summary's keys."""
+    """K1 at the training shape, K3 at the train batch, the K2 backward
+    and the optimizer's pass (:func:`sgd_checks`), each against its twin
+    on the inputs one recorded train step gave it, with times.  ``tag``
+    prefixes the summary's keys."""
     torch = port.torch
     summary = {}
     nms_err, nms_results = port.check_nms(records["nms"], ("train_proposals",))
@@ -1689,6 +1718,96 @@ def train_kernel_checks(port, records, path, tag="train"):
         "library_call": times[0]["library_call"]}
     emit({"phase": "kernel", "path": path, "kernel": "roi_align_bwd",
           "cases": bwd_results, "times": times, **summary["roi_align_bwd"]})
+    summary["sgd_chain"] = sgd_checks(port, records["sgd_chain"], path)
+    return summary
+
+
+SGD_KERNELS = ("sgd_norm_partial_kernel", "sgd_norm_finish_kernel",
+               "sgd_update_kernel")
+
+
+def sgd_checks(port, inputs, tag):
+    """The optimizer's pass against its twin on the inputs of one recorded
+    train step (``Port.sgd_snapshot``: the detector's tensors, and the
+    discriminator's in an SCDA step), each side on copies: as recorded,
+    and with the clipped gradients scaled to half the clip.  Where the
+    global norm stays under the clip every parameter and momentum must
+    equal the twin's bit for bit; where it engages, the norm's sums run
+    in another order, and each tensor is held to 1e-6 of its largest
+    magnitude.  With times: the wrapper, its three kernels alone, the
+    twin, and the bound (24 B an element with an f32 momentum)."""
+    torch, sk = port.torch, port.sgd
+    require(inputs, f"{tag}: no optimizer call was recorded")
+    rules, clip, kw = inputs["rules"], inputs["clip"], inputs["kw"]
+    ps, ms, raw = inputs["params"], inputs["momenta"], inputs["grads"]
+    clipped = [i for i, r in enumerate(rules) if r.clip]
+
+    def norm(grads):
+        return math.sqrt(sum(float(grads[i].double().square().sum())
+                             for i in clipped))
+
+    def compare(grads):
+        kp, km = [t.clone() for t in ps], [t.clone() for t in ms]
+        tp, tm = [t.clone() for t in ps], [t.clone() for t in ms]
+        tables = sk.SgdTables(kp, km, rules, clip)
+        sk.sgd_chain(tables, grads, **kw)
+        sk.sgd_chain_plain(tp, grads, tm, rules, clip=clip, **kw)
+        torch.cuda.synchronize()
+        pairs = list(zip(kp + km, tp + tm))
+        gap = max(float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp_min(1e-30))
+                  for a, b in pairs)
+        n = norm(grads)
+        return {"norm": n, "kernel_norm": float(tables.scal[2]),
+                "clip_engaged": clip is not None and n >= clip,
+                "unequal_tensors": sum(not torch.equal(a, b)
+                                       for a, b in pairs),
+                "max_rel_err": gap}
+
+    cases = {"as_recorded": compare(raw)}
+    if clipped:
+        f = 0.5 * clip / max(cases["as_recorded"]["norm"], 1e-30)
+        cases["under_clip"] = compare([g * f if r.clip else g
+                                       for g, r in zip(raw, rules)])
+    for name, c in cases.items():
+        if c["clip_engaged"]:
+            require(c["max_rel_err"] <= 1e-6,
+                    f"{tag}: sgd_chain {name} off its twin by "
+                    f"{c['max_rel_err']} of a tensor's largest magnitude")
+        else:
+            require(c["unequal_tensors"] == 0,
+                    f"{tag}: sgd_chain {name} under the clip: "
+                    f"{c['unequal_tensors']} tensors differ from the twin's")
+
+    kp, km = [t.clone() for t in ps], [t.clone() for t in ms]
+    tables = sk.SgdTables(kp, km, rules, clip)
+    tp, tm = [t.clone() for t in ps], [t.clone() for t in ms]
+    parts = port.device_kernel_ms(lambda: sk.sgd_chain(tables, raw, **kw),
+                                  SGD_KERNELS)
+    n_el = sum(p.numel() for p in ps)
+    n_clip = sum(ps[i].numel() for i in clipped)
+    moved = 4 * n_clip + sum(p.numel() * (12 + 2 * m.element_size())
+                             for p, m in zip(ps, ms))
+    # Each element: the norm's square and sum, the clip's divide and
+    # multiply, the decay's multiply-add, the bias factor, the momentum's
+    # multiply-add and the update's.
+    flops = 4 * n_clip + sum(p.numel() * (4 + 2 * bool(r.decay)
+                                          + (r.scale != 1.0))
+                             for p, r in zip(ps, rules))
+    summary = {
+        "max_rel_err": max(c["max_rel_err"] for c in cases.values()),
+        f"{tag}_tensors": len(ps), f"{tag}_elements": n_el,
+        f"{tag}_cases": cases,
+        "ms": time_ms(torch, lambda: sk.sgd_chain(tables, raw, **kw), 20),
+        "kernel_ms": (None if None in parts.values()
+                      else sum(parts.values())),
+        "plain_ms": time_ms(torch, lambda: sk.sgd_chain_plain(
+            tp, raw, tm, rules, clip=clip, **kw), 5),
+        **roofline(flops, moved, PEAK_F32_FLOPS)}
+    emit({"phase": "kernel", "path": tag, "kernel": "sgd_chain",
+          "tolerance": "bit-equal under the clip; 1e-6 of each tensor's "
+          "largest magnitude where it engages", "kernel_parts_ms": parts,
+          **summary})
     return summary
 
 
@@ -1696,7 +1815,7 @@ def vgg16_train_path(port, device, frames):
     """VGG16 training: bs 1 and 8 (K1, K2 forward and backward, K3), the
     kernel checks on the bs=8 step's inputs, the f32 gradient check."""
     want = {"nms": 1, "roi_align": 1, "roi_align_bwd": 1, "vgg_stem": 1,
-            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0}
+            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0, "sgd_chain": 1}
     launches, records = {}, {}
     for bs in (1, 8):
         _, cfg16 = port.train_cfgs("vgg16", bs)
@@ -1731,7 +1850,7 @@ def res101_ms_train_path(port, device, frames):
             and cfg16.train.weight_decay == 1e-4,
             "cfgs/res101_ms.yml did not give the res101-ms train config")
     want = {"nms": 1, "roi_align": 2, "roi_align_bwd": 2, "vgg_stem": 0,
-            "bottleneck_chain": 3, "bottleneck_chain_bwd": 2}
+            "bottleneck_chain": 3, "bottleneck_chain_bwd": 2, "sgd_chain": 1}
     model = port.train_model(cfg16, device)
     state_dict = {k: v.clone() for k, v in model.state_dict().items()}
     launches, records = port.train_run(
@@ -1755,8 +1874,9 @@ def scda_kernel_checks(port, records, cfg, tag):
     backward, on the mined boxes (R = ``num_groups`` map-sized rois per
     image, P = ``region_pool_size``), each against its twin on the inputs
     one recorded SCDA step gave it, with times and bounds.  The sampled
-    rois take one K2 call, or one per level with multiscale pooling.
-    ``tag`` prefixes the summary's keys."""
+    rois take one K2 call, or one per level with multiscale pooling.  Then
+    the optimizer's pass over the detector and the discriminator
+    (:func:`sgd_checks`).  ``tag`` prefixes the summary's keys."""
     torch = port.torch
     k, p = cfg.adapt.num_groups, cfg.adapt.region_pool_size
     levels = 2 if cfg.model.multiscale_roi else 1
@@ -1869,6 +1989,7 @@ def scda_kernel_checks(port, records, cfg, tag):
           "zero_cotangent": zero,      # per mined-region call, as run
           "cases": bwd_results, "times": bwd_times,
           **summary["roi_align_bwd"]})
+    summary["sgd_chain"] = sgd_checks(port, records["sgd_chain"], tag)
     return summary
 
 
@@ -1879,7 +2000,7 @@ def vgg16_scda_path(port, device, frames):
     boxes of the joint steps, the f32 gradient check of the joint step."""
     here = os.path.dirname(os.path.abspath(__file__))
     want = {"nms": 2, "roi_align": 3, "roi_align_bwd": 3, "vgg_stem": 2,
-            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0}
+            "bottleneck_chain": 0, "bottleneck_chain_bwd": 0, "sgd_chain": 1}
     foggy = os.path.join(here, "cfgs", "scda_foggy.yml")
     car = os.path.join(here, "cfgs", "scda_sim10k_car.yml")
     cfg32, cfg16 = port.train_cfgs("vgg16", 1, foggy)
@@ -2205,7 +2326,7 @@ def vgg16_surface_path(port, device, frames):
         # The demo's two forwards and the two reference forwards.
         delta(port, zero, {"nms": 8, "roi_align": 4, "roi_align_bwd": 0,
                            "vgg_stem": 4, "bottleneck_chain": 0,
-                           "bottleneck_chain_bwd": 0}, "demo")
+                           "bottleneck_chain_bwd": 0, "sgd_chain": 0}, "demo")
         for mode in ("pool", "crop"):
             before = launch_counts(port)
             surface_pooling(port, device, state, images, infos, frames, mode)
@@ -2215,19 +2336,21 @@ def vgg16_surface_path(port, device, frames):
             delta(port, before, {"nms": 2 * f, "roi_align": 0,
                                  "roi_align_bwd": 0, "vgg_stem": f,
                                  "bottleneck_chain": 0,
-                                 "bottleneck_chain_bwd": 0}, f"{mode} serving")
+                                 "bottleneck_chain_bwd": 0, "sgd_chain": 0},
+                  f"{mode} serving")
         before = launch_counts(port)
         surface_test_net(port, device, root, tmp)
         delta(port, before, {"nms": 2 * N_FRAMES, "roi_align": N_FRAMES,
                              "roi_align_bwd": 0, "vgg_stem": N_FRAMES,
                              "bottleneck_chain": 0,
-                             "bottleneck_chain_bwd": 0}, "test_net")
+                             "bottleneck_chain_bwd": 0, "sgd_chain": 0},
+              "test_net")
         before = launch_counts(port)
         surface_data_parallel(port, device, frames, tmp)
         s = 2 + 2 * (1 + DDP_STEPS)
         delta(port, before, {"nms": s, "roi_align": s, "roi_align_bwd": s,
                              "vgg_stem": s, "bottleneck_chain": 0,
-                             "bottleneck_chain_bwd": 0},
+                             "bottleneck_chain_bwd": 0, "sgd_chain": s},
               "data-parallel steps")
         launches = launch_counts(port)
         emit({"phase": "surface_done", "path": "vgg16_surface",
@@ -2242,16 +2365,16 @@ def vgg16_surface_path(port, device, frames):
 BENCH_UNITS = {
     "inference_bs8": {"nms": 2, "roi_align": 1, "roi_align_bwd": 0,
                       "vgg_stem": 1, "bottleneck_chain": 0,
-                      "bottleneck_chain_bwd": 0},
+                      "bottleneck_chain_bwd": 0, "sgd_chain": 0},
     "res101_bs8": {"nms": 2, "roi_align": 2, "roi_align_bwd": 0,
                    "vgg_stem": 0, "bottleneck_chain": 3,
-                   "bottleneck_chain_bwd": 0},
+                   "bottleneck_chain_bwd": 0, "sgd_chain": 0},
     "train_bs16": {"nms": 1, "roi_align": 1, "roi_align_bwd": 1,
                    "vgg_stem": 1, "bottleneck_chain": 0,
-                   "bottleneck_chain_bwd": 0},
+                   "bottleneck_chain_bwd": 0, "sgd_chain": 1},
     "scda_car_bs8": {"nms": 2, "roi_align": 3, "roi_align_bwd": 3,
                      "vgg_stem": 2, "bottleneck_chain": 0,
-                     "bottleneck_chain_bwd": 0},
+                     "bottleneck_chain_bwd": 0, "sgd_chain": 1},
 }
 
 
@@ -2387,6 +2510,10 @@ def bench_batches_path(port, device, frames):
         recs = {**forward_recorders(port),
                 "roi_align_bwd": Recorder(port.rk, "roi_align_contract_bwd"),
                 "mined": Recorder(port.scda, "mine_regions")}
+        sgd_inputs = {}
+        if name in ("train_bs16", "scda_car_bs8"):
+            recs["sgd_chain"] = Recorder(port.sgd, "sgd_chain",
+                                         port.sgd_snapshot(sgd_inputs))
         with contextlib.ExitStack() as stack:
             for rec in recs.values():
                 stack.enter_context(rec)
@@ -2424,13 +2551,15 @@ def bench_batches_path(port, device, frames):
             emit({"phase": "kernel", "path": tag, "kernel": "roi_align",
                   "cases": roi_results, "max_abs_err": roi_err})
             checks = train_kernel_checks(
-                port, {k: recs[k].calls for k in
-                       ("nms", "vgg_stem", "roi_align_bwd")}, tag, tag)
+                port, {**{k: recs[k].calls for k in
+                          ("nms", "vgg_stem", "roi_align_bwd")},
+                       "sgd_chain": sgd_inputs}, tag, tag)
             checks["roi_align"] = {"max_abs_err": roi_err}
         elif name == "scda_car_bs8":
             records = {k: recs[k].calls for k in
                        ("nms", "roi_align", "roi_align_bwd")}
             records["mined"] = recs["mined"].results
+            records["sgd_chain"] = sgd_inputs
             checks = scda_kernel_checks(port, records, cfg, tag)
         else:
             with torch.no_grad():
@@ -2965,9 +3094,12 @@ def ab_protocol(port, root, name):
                 unequal = unequal_keys(
                     port.torch, load_payload(os.path.join(save, AB_NET, "synthetic")),
                     load_payload(os.path.join(again, AB_NET, "synthetic")))
-                # A row's values, without its clock readings.
+                # A row's values, without its clock readings (the wall
+                # time, the rate and the share of it spent waiting for
+                # data).
                 vals = [[{k: v for k, v in r.items()
-                          if k not in ("wall_s", "img_per_sec")} for r in rs]
+                          if k not in ("wall_s", "img_per_sec",
+                                       "data_wait_frac")} for r in rs]
                         for rs in (rows, rows2)]
                 rerun = {"seed": seed, "steps": AB_ARM_STEPS,
                          "rows_equal": vals[0] == vals[1],
@@ -3163,7 +3295,7 @@ def learning_res101_scda(port, device, frames):
     require(cfg.model.multiscale_roi and cfg.adapt.d_update == "joint",
             "res101-ms SCDA: not the joint multiscale config")
     want = {"nms": 2, "roi_align": 4, "roi_align_bwd": 4, "vgg_stem": 0,
-            "bottleneck_chain": 6, "bottleneck_chain_bwd": 4}
+            "bottleneck_chain": 6, "bottleneck_chain_bwd": 4, "sgd_chain": 1}
     model = port.build_model(cfg.model, cfg.anchors.num_anchors, device="cpu")
     port.init_params(model, torch.Generator().manual_seed(cfg.train.seed))
     state_dict = {k: v.clone() for k, v in model.state_dict().items()}
@@ -3457,9 +3589,13 @@ def drive_at(port, device, argv):
     cfg, batch, tgt = cli_inputs(port, device, argv)
     model = port.train_model(cfg, device)
     state, step = port.train_step(cfg, model, tgt is not None)
+    sgd_inputs = {}
     recs = {**forward_recorders(port),
             "roi_align_bwd": Recorder(port.rk, "roi_align_contract_bwd"),
-            "mined": Recorder(port.scda, "mine_regions")}
+            "mined": Recorder(port.scda, "mine_regions"),
+            "sgd_chain": Recorder(port.sgd, "sgd_chain",
+                                  port.sgd_snapshot(sgd_inputs))}
+    recs["sgd_chain"].inputs = sgd_inputs
     with contextlib.ExitStack() as stack:
         for rec in recs.values():
             stack.enter_context(rec)
@@ -3475,18 +3611,21 @@ def drive_at(port, device, argv):
 def checks_at(port, cfg, recs, fwd, tag):
     """Each kernel against its twin on the inputs ``drive_at`` recorded:
     the step's K1, K2 forward and backward (and, in an SCDA step, K1 of
-    the target tower and K2 on the mined regions) and K3; the forward's
+    the target tower and K2 on the mined regions), K3 and the optimizer's
+    pass; the forward's
     K1 (proposals and per class), K2 and K3, with times and bounds."""
     torch = port.torch
     if recs["mined"].calls:
         records = {k: recs[k].calls for k in ("nms", "roi_align",
                                               "roi_align_bwd")}
         records["mined"] = recs["mined"].results
+        records["sgd_chain"] = recs["sgd_chain"].inputs
         summary = scda_kernel_checks(port, records, cfg, f"{tag}_step")
     else:
         summary = train_kernel_checks(
-            port, {k: recs[k].calls for k in ("nms", "vgg_stem",
-                                              "roi_align_bwd")},
+            port, {**{k: recs[k].calls for k in ("nms", "vgg_stem",
+                                                 "roi_align_bwd")},
+                   "sgd_chain": recs["sgd_chain"].inputs},
             f"{tag}_step", f"{tag}_step")
         with torch.no_grad():
             step_fwd = [((wy.detach(), wx.detach(), feat.detach()), {})
@@ -3580,7 +3719,7 @@ def protocols_path(port, device, frames, scripts=None):
         want = {"nms": 4 * 2 * N_FRAMES + 2 * 2 + 3 + 4,
                 "roi_align": 4 * N_FRAMES + 2 + 2 + 4, "roi_align_bwd": 4,
                 "vgg_stem": 4 * N_FRAMES + 2 + 2 + 3, "bottleneck_chain": 0,
-                "bottleneck_chain_bwd": 0}
+                "bottleneck_chain_bwd": 0, "sgd_chain": 2}
         require(launches == want,
                 f"protocols: launches {launches}, expected {want}")
         with torch.no_grad():
@@ -3865,6 +4004,8 @@ def main() -> int:
         "bottleneck_chain_bwd": (
             "scda_tpu_torch/csrc/bottleneck_chain_bwd.cu",
             "scda_tpu/ops/pallas/bottleneck_kernel.py:297"),
+        "sgd_chain": ("scda_tpu_torch/csrc/sgd_chain.cu",
+                      "none (optax's chain, which XLA fuses)"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -39,7 +39,7 @@ from scda_tpu_torch.models.discriminator import (
 )
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN, pool_rois
 from scda_tpu_torch.models.rpn import propose
-from scda_tpu_torch.train.state import TrainState
+from scda_tpu_torch.train.state import PlainSgd, TrainState
 from scda_tpu_torch.train.steps import (
     ScdaGenerators, check_train_config, scda_step_generators,
 )
@@ -70,12 +70,11 @@ class ScdaTrainState:
     @torch.no_grad()
     def apply_gradients(self, g_det: Dict[str, torch.Tensor],
                         g_d: Dict[str, torch.Tensor]) -> None:
-        """One step of both optimizers, in place."""
-        self.det.apply_gradients(g_det)
-        for n, p in self.d_model.named_parameters():
-            trace = g_d[n] + self.d_decay * self.d_momentum[n]
-            self.d_momentum[n].copy_(trace)
-            p.add_(trace * -self.d_lr)
+        """One step of both optimizers, in place, in one pass of the
+        detector's chain (the discriminator as its plain group)."""
+        self.det.apply_gradients(g_det, PlainSgd(
+            dict(self.d_model.named_parameters()), g_d, self.d_momentum,
+            self.d_decay, self.d_lr))
 
 
 def create_scda_state(cfg: Config, det_state: TrainState,

@@ -20,12 +20,18 @@ writes the same chain out over named parameter lists, in optax's order:
 and the bias scale in this order.  The learning rate is optax's
 piecewise-constant schedule, reproduced in float32.  Parameters and the
 momentum are updated in place.
+
+The chain is :mod:`scda_tpu_torch.ops.kernels.sgd_kernel`'s, over a rule a
+tensor (:meth:`SgdChain.rules`): on CUDA tensors one hand-written pass
+(three launches a step, the SCDA discriminator's plain SGD in the same
+launches), elsewhere its plain twin, op by op.  The tensors' device alone
+decides.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +40,8 @@ from scda_tpu_torch.config import Config
 from scda_tpu_torch.models.backbones.resnet import resnet_frozen_param_paths
 from scda_tpu_torch.models.backbones.vgg import vgg_frozen_param_paths
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
+from scda_tpu_torch.ops.kernels import sgd_kernel
+from scda_tpu_torch.ops.kernels.sgd_kernel import SgdRule
 
 
 def frozen_paths_for(cfg: Config) -> Sequence[str]:
@@ -79,6 +87,23 @@ def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float
     return schedule
 
 
+# A tensor of a PlainSgd group: no clip, no decay, no bias factor.
+PLAIN_RULE = SgdRule(clip=False, decay=0.0, scale=1.0, group=1)
+
+
+class PlainSgd(NamedTuple):
+    """A group of tensors under plain SGD with momentum (``trace = g +
+    decay * trace``, ``p -= lr * trace``: no clip, no weight decay, no
+    bias factor), updated in the same pass as a chain's own: the SCDA
+    discriminator's.  Dicts by the same names."""
+
+    params: Dict[str, torch.Tensor]
+    grads: Dict[str, torch.Tensor]
+    momentum: Dict[str, torch.Tensor]
+    decay: float
+    lr: float
+
+
 class SgdChain:
     """The optimizer of :mod:`scda_tpu.train.state` over a model's named
     parameters; see the module docstring for the order."""
@@ -100,6 +125,21 @@ class SgdChain:
                       if tc.bias_decay or not _is_bias(n, by_name[n])]
         self.bias = ([n for n in self.names if _is_bias(n, by_name[n])]
                      if tc.double_bias else [])
+        # optax's trace takes decay * trace in the trace's dtype.
+        self.momentum_factor = float(torch.tensor(self.momentum,
+                                                  dtype=self.momentum_dtype))
+        decay = set(self.decay) if self.weight_decay else set()
+        bias = set(self.bias)
+        self._rules = [SgdRule(clip=self.clip is not None,
+                               decay=self.weight_decay if n in decay else 0.0,
+                               scale=2.0 if n in bias else 1.0, group=0)
+                       for n in self.names]
+        self._tables: Optional[sgd_kernel.SgdTables] = None
+
+    def rules(self, plain: int = 0) -> List[SgdRule]:
+        """What the chain does to each tensor of ``names``, in order, then
+        to ``plain`` tensors of a :class:`PlainSgd` group."""
+        return self._rules + [PLAIN_RULE] * plain
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Zero momentum for every trainable parameter."""
@@ -109,37 +149,31 @@ class SgdChain:
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
                grads: Dict[str, torch.Tensor],
-               momentum: Dict[str, torch.Tensor], count: int) -> None:
-        """One step on the trainable ``params`` and ``momentum``, in place."""
-        g = {n: grads[n].float() for n in self.names}
-        if self.clip is not None:
-            gl = list(g.values())
-            # optax's global_norm: sqrt of the summed squares.  Not
-            # torch.linalg.vector_norm nor _foreach_norm: on the CPU they
-            # sum fc6's 10^8 squares serially in f32, about 1% low;
-            # ``sum`` reduces pairwise.
-            norm = torch.sqrt(torch.stack([t.square().sum() for t in gl]).sum())
-            keep = norm < self.clip
-            one = torch.ones_like(norm)
-            clipped = torch._foreach_mul(
-                torch._foreach_div(gl, torch.where(keep, one, norm)),
-                torch.where(keep, one, torch.full_like(norm, self.clip)))
-            g = dict(zip(g, clipped))
-        if self.weight_decay:
-            decayed = torch._foreach_add(
-                [g[n] for n in self.decay],
-                torch._foreach_mul([params[n] for n in self.decay],
-                                   self.weight_decay))
-            g.update(zip(self.decay, decayed))
-        for n in self.bias:
-            g[n] = 2.0 * g[n]
-        # optax trace: decay * trace in the trace's dtype, then + g in f32.
-        m = float(torch.tensor(self.momentum, dtype=self.momentum_dtype))
-        lr = self.lr_schedule(count)
-        for n in self.names:
-            trace = g[n] + m * momentum[n]
-            momentum[n].copy_(trace)
-            params[n].add_(trace * -lr)
+               momentum: Dict[str, torch.Tensor], count: int,
+               plain: Optional[PlainSgd] = None) -> None:
+        """One step on the trainable ``params`` and ``momentum``, in place,
+        and on the ``plain`` group's where one is given."""
+        ps = [params[n] for n in self.names]
+        gs = [grads[n] for n in self.names]
+        ms = [momentum[n] for n in self.names]
+        mom = (self.momentum_factor, 0.0)
+        lr = (self.lr_schedule(count), 0.0)
+        if plain is not None:
+            names = list(plain.momentum)
+            ps += [plain.params[n] for n in names]
+            gs += [plain.grads[n] for n in names]
+            ms += [plain.momentum[n] for n in names]
+            mom, lr = (mom[0], plain.decay), (lr[0], plain.lr)
+        rules = self.rules(len(ms) - len(self.names))
+        if not ms:
+            return
+        if ms[0].is_cuda:
+            if self._tables is None or not self._tables.matches(ps, ms):
+                self._tables = sgd_kernel.SgdTables(ps, ms, rules, self.clip)
+            sgd_kernel.sgd_chain(self._tables, gs, momentum=mom, lr=lr)
+        else:
+            sgd_kernel.sgd_chain_plain(ps, gs, ms, rules, clip=self.clip,
+                                       momentum=mom, lr=lr)
 
 
 @dataclasses.dataclass
@@ -155,9 +189,12 @@ class TrainState:
         params = dict(self.model.named_parameters())
         return self.tx.names, [params[n] for n in self.tx.names]
 
-    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
+    def apply_gradients(self, grads: Dict[str, torch.Tensor],
+                        plain: Optional[PlainSgd] = None) -> None:
+        """One optimizer step; ``plain``: a group updated in the same
+        pass."""
         self.tx.update(dict(self.model.named_parameters()), grads,
-                       self.momentum, self.step)
+                       self.momentum, self.step, plain)
         self.step += 1
 
 

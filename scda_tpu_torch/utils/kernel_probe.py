@@ -9,6 +9,7 @@ prints times that explain them.
     python -m scda_tpu_torch.utils.kernel_probe k4
     python -m scda_tpu_torch.utils.kernel_probe k4bwd
     python -m scda_tpu_torch.utils.kernel_probe k4bwd-phases
+    python -m scda_tpu_torch.utils.kernel_probe sgd
     python -m scda_tpu_torch.utils.kernel_probe peaks
 
 ``k1`` to ``k4`` time the kernels of this checkout at the shapes of the
@@ -41,6 +42,14 @@ the bf16 kernel taken out (conv1_1's sums, conv1_2's taps, both) or with
 one block per SM, and times the C call alone: the differences say what
 each phase costs and whether two blocks per SM overlap them.  The copies
 go to ``_build/probe/`` and are not used by the package.
+
+``sgd`` times the optimizer's chain (``ops/kernels/sgd_kernel.py``) over
+the trainable tensors of the vgg16 SCDA step (with the discriminator's)
+and of the res101_ms step, with seeded values, the clip engaged: the
+kernel through ``SgdChain.update`` and its launches alone, beside the
+eager twin, with the host's time a call, launches, the 24-byte-an-element
+bound and whether one step from the same state under the clip equals
+the twin's bit for bit.
 
 ``peaks`` times cuBLAS on an 8192-cubed product in f32 (TF32 off) and in
 bf16: the rates a library reaches on this card, to read the kernels'
@@ -560,6 +569,138 @@ def probe_k3_phases(device):
                   flush=True)
 
 
+def sgd_config(name: str):
+    """The optimizer settings of the benchmark's ``vgg16`` and
+    ``res101_ms`` configurations (their ``cfgs/*.yml``)."""
+    from scda_tpu_torch.config import get_config, replace_path
+
+    if name == "vgg16":
+        return get_config("vgg16")
+    return replace_path(get_config("res101"), "model.multiscale_roi", True)
+
+
+def sgd_inputs(name: str, momentum_dtype: str, device, seed: int = 0):
+    """(chain, config, params, momenta, the discriminator's (params,
+    momenta) for vgg16 or None): seeded tensors at the configuration's
+    trainable shapes, laid out as the model lays them out (4-d
+    channels_last), momenta nonzero."""
+    from scda_tpu_torch.adapt.scda import discriminator_in_channels
+    from scda_tpu_torch.config import replace_path
+    from scda_tpu_torch.models.discriminator import PatchDiscriminator
+    from scda_tpu_torch.models.faster_rcnn import FasterRCNN
+    from scda_tpu_torch.train.state import SgdChain
+
+    cfg = replace_path(sgd_config(name), "train.momentum_dtype",
+                       momentum_dtype)
+    with torch.device("meta"):
+        model = FasterRCNN(cfg.model, cfg.anchors.num_anchors)
+        d = PatchDiscriminator(discriminator_in_channels(cfg),
+                               cfg.adapt.d_channels)
+    tx = SgdChain(cfg, model, steps_per_epoch=1)
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(shape, dtype=torch.float32, scale=0.01):
+        t = torch.randn(shape, generator=gen, device=device) * scale
+        if len(shape) == 4:
+            t = t.contiguous(memory_format=torch.channels_last)
+        return t.to(dtype)
+
+    params = {n: make(shapes[n]) for n in tx.names}
+    mom = {n: make(shapes[n], tx.momentum_dtype, 1e-3) for n in tx.names}
+    plain = None
+    if name == "vgg16":
+        plain = ({n: make(p.shape) for n, p in d.named_parameters()},
+                 {n: make(p.shape, scale=1e-3) for n, p in d.named_parameters()})
+    return tx, cfg, params, mom, plain
+
+
+def sgd_grads(tensors, device, norm: float, seed: int):
+    """Seeded gradients laid out as ``tensors``, scaled to the global
+    ``norm`` (taken in f64)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {n: torch.empty_like(t, dtype=torch.float32).copy_(
+        torch.randn(t.shape, generator=gen, device=device))
+        for n, t in tensors.items()}
+    total = sum(float(v.double().square().sum()) for v in out.values()) ** 0.5
+    return {n: v * (norm / total) for n, v in out.items()}
+
+
+def probe_sgd(device):
+    import time
+
+    from scda_tpu_torch.ops.kernels import sgd_kernel as sk
+    from scda_tpu_torch.train.state import PlainSgd
+
+    for name in ("vgg16", "res101_ms"):
+        tx, cfg, params, mom, d = sgd_inputs(name, "float32", device)
+        dp, dm = d if d else ({}, {})
+        grads = sgd_grads(params, device, 3.0 * tx.clip, 1)
+        dg = sgd_grads(dp, device, 1.0, 2)
+        plain = (PlainSgd(dp, dg, dm, cfg.train.momentum, cfg.adapt.d_lr)
+                 if d else None)
+        ps = [params[n] for n in tx.names] + list(dp.values())
+        gs = [grads[n] for n in tx.names] + list(dg.values())
+        ms = [mom[n] for n in tx.names] + list(dm.values())
+        kw = dict(momentum=(tx.momentum_factor, cfg.train.momentum),
+                  lr=(tx.lr_schedule(0), cfg.adapt.d_lr))
+        rules = tx.rules(len(dp))
+
+        def fused():
+            tx.update(params, grads, mom, 0, plain)
+
+        def eager():
+            sk.sgd_chain_plain(ps, gs, ms, rules, clip=tx.clip, **kw)
+
+        fused()
+        tables = tx._tables
+        laid = tables.grads(gs)
+
+        def alone():
+            sk.sgd_chain(tables, laid, **kw)
+
+        # One step from the same state under the clip, both ways.
+        small = {n: g * 0.1 for n, g in grads.items()}
+        before = [t.clone() for t in ps + ms]
+        tx.update(params, small, mom, 0, plain)
+        after = [t.clone() for t in ps + ms]
+        for t, b in zip(ps + ms, before):
+            t.copy_(b)
+        sk.sgd_chain_plain(ps, [small[n] for n in tx.names] + list(dg.values()),
+                           ms, rules, clip=tx.clip, **kw)
+        equal = all(torch.equal(a, t) for a, t in zip(after, ps + ms))
+        elements = sum(p.numel() for p in ps)
+        nbytes = sum(p.numel() * (16 + 2 * m.element_size())
+                     for p, m in zip(ps, ms))
+        host = []
+        for fn in (fused, eager):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            host.append(1e3 * (time.perf_counter() - t0) / 10)
+            torch.cuda.synchronize()
+        rows_f, rows_e = kernel_times(fused), kernel_times(eager)
+        print(f"sgd {name}: {len(ps)} tensors ({len(dp)} plain), "
+              f"{elements / 1e6:.2f} M elements, {nbytes / 1e9:.3f} GB, bound "
+              f"{nbytes / 3.35e12 * 1e3:.4f} ms (bytes); fused: wrapper "
+              f"{time_ms(fused):.4f} ms, launches alone {time_ms(alone):.4f} "
+              f"ms, host {host[0]:.4f} ms a call, "
+              f"{sum(r[1] for r in rows_f):.0f} launches; eager twin "
+              f"{time_ms(eager):.4f} ms, host {host[1]:.4f} ms a call, "
+              f"{sum(r[1] for r in rows_e):.0f} launches; one step under the "
+              f"clip equal to the twin's: {equal}; norm "
+              f"{float(tables.scal[2]):.6g}", flush=True)
+        for label, rows in (("fused", rows_f), ("eager", rows_e)):
+            for kname, per_call, us in rows[:4]:
+                print(f"    {label} {kname[:58]:58s} x{per_call:5.1f} "
+                      f"{us:8.2f} us", flush=True)
+        del params, mom, grads, dp, dm, dg, ps, gs, ms, tables, laid, before
+        del after, small, plain, tx
+        torch.cuda.empty_cache()
+
+
 def probe_peaks(device):
     n = 8192
     a = torch.randn((n, n), device=device)
@@ -574,7 +715,8 @@ def probe_peaks(device):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("what", choices=("k1", "k2", "k3", "k3-phases", "k4",
-                                         "k4bwd", "k4bwd-phases", "peaks"))
+                                         "k4bwd", "k4bwd-phases", "sgd",
+                                         "peaks"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_probe: needs a CUDA device", file=sys.stderr)
@@ -590,7 +732,7 @@ def main(argv=None) -> int:
          "k3-phases": probe_k3_phases,
          "k4": probe_k4, "k4bwd": probe_k4bwd,
          "k4bwd-phases": probe_k4bwd_phases,
-         "peaks": probe_peaks}[args.what](device)
+         "sgd": probe_sgd, "peaks": probe_peaks}[args.what](device)
     return 0
 
 

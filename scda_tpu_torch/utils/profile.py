@@ -32,7 +32,7 @@ inputs, shown where the profiler records shapes.  :func:`span_times` and
 | ``scda.postprocess`` | ``models.detector.postprocess`` | decode, per-class K1, top-k |
 | ``scda.adapt`` > ``.target``, ``.mine``, ``.patches``, ``.disc`` | ``adapt.scda``: the target tower, mining, region patches, discriminator and BCE | the SCDA layer's forward |
 | ``scda.adapt.bwd`` (``step``) | from the adversarial loss's autograd node to the detection loss's | the SCDA layer's backward |
-| ``scda.backward``; ``scda.optimizer`` | ``torch.autograd.grad``; ``apply_gradients`` | the backward; both optimizers |
+| ``scda.backward``; ``scda.optimizer`` | ``torch.autograd.grad``; ``apply_gradients`` | the backward; both optimizers (``ops.kernels.sgd_kernel``) |
 | ``scda.k4`` (``call``, ``stage``); ``scda.k4.bwd`` (the same) | ``ops.kernels.bottleneck_kernel.bottleneck_chain``; its backward | K4; K4's backward |
 | ``scda.data.wait``; ``scda.data.h2d`` | ``cli.trainval``'s loop | the loader's next batch; its copy |
 
@@ -63,6 +63,7 @@ KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
                            "nchwToNhwc", "nhwcToNchw", "cublas")),
     ("copy", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
     ("optimizer foreach", ("multi_tensor",)),
+    ("optimizer sgd", ("sgd_norm_", "sgd_update_")),
     ("sort/scan/reduce", ("sort", "Sort", "scan", "reduce", "Reduce",
                           "cub::", "topk", "TopK")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise", "fill",
@@ -80,6 +81,8 @@ PORT_KERNELS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("K3 vgg_stem", ("vgg_stem_bf16_kernel", "vgg_stem_f32_kernel")),
     ("K4 bottleneck_chain", ("chain_wgmma_kernel", "chain_gemm_f32_kernel")),
     ("K4 bottleneck_chain_bwd", ("chain_bwd_",)),
+    ("sgd_chain", ("sgd_norm_partial_kernel", "sgd_norm_finish_kernel",
+                   "sgd_update_kernel")),
 )
 
 Row = Tuple[str, int, float]     # (kernel name, launches, device ms)

@@ -14,8 +14,11 @@ and blocking host calls a unit, the per-layer numbers the spans give
 (the SCDA layer's share of the unit's device time, the optimizer's and
 the targets' ms, blocking calls an image, the kernel library's load), the
 idle gaps between kernels by the innermost span the host was in, the
-K4 spans against the harness's ``bench.chain`` ranges, and which
-autograd nodes ran inside ``scda.adapt.bwd``.  Prints one JSON line.
+K4 spans against the harness's ``bench.chain`` ranges, which autograd
+nodes ran inside ``scda.adapt.bwd``, and the device work each
+``scda.optimizer`` span launched: its kernels a step, and the share of
+steps that ran ``ops.kernels.sgd_kernel``'s update kernel (100 on the
+card).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -175,6 +178,31 @@ def layer_numbers(span_ms: dict, span_syncs: dict, device_ms: float,
     }
 
 
+FUSED_KERNEL = "sgd_update_kernel"
+
+
+def optimizer_kernels(events) -> dict:
+    """The ``scda.optimizer`` spans: how many, the device work each
+    launched (every kernel, copy or fill whose runtime call starts inside
+    it, found by correlation id, as :func:`profile.span_times` finds it)
+    a step, and the share of steps that launched a kernel whose name
+    holds :data:`FUSED_KERNEL` (the trace gives demangled signatures)."""
+    calls = {e.id: _interval(e)[0] for e in events
+             if not profile._is_device(e) and e.name.startswith("cu")}
+    work = sorted((calls[e.id], e.name) for e in events
+                  if profile._is_device(e) and e.id in calls
+                  and not getattr(e, "is_user_annotation", False))
+    steps = [[name for t, name in work
+              if _interval(s)[0] <= t <= _interval(s)[1]]
+             for s in events if s.name == "scda.optimizer"
+             and not profile._is_device(s)]
+    if not steps:
+        return {"steps": 0}
+    fused = sum(any(FUSED_KERNEL in n for n in names) for names in steps)
+    return {"steps": len(steps), "fused_pct": 100.0 * fused / len(steps),
+            "launches_per_step": sum(map(len, steps)) / len(steps)}
+
+
 def report(workload: str, seed: int, window: float, device,
            root: str = ROOT, units: int = 0) -> dict:
     """Everything above for one cell of the benchmark at ``root``, as a
@@ -227,6 +255,7 @@ def report(workload: str, seed: int, window: float, device,
             "k4.bwd": [span_ms.get("scda.k4.bwd"),
                        ranges.get("bench.chain_bwd")]},
         "adapt_bwd_nodes": adapt_bwd_nodes(events),
+        "optimizer": optimizer_kernels(events),
         "idle_gaps_bench": t["idle_gaps"],
         "idle_gaps_by_span": gaps_by_span(events, unit_thread),
     }

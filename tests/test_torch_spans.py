@@ -226,6 +226,21 @@ def test_every_span_of_a_unit_carries_its_id(name):
     assert {e.kwinputs.get(key) for e in spans(again)} == {ids.pop() + 1}
 
 
+@pytest.mark.parametrize("name", ["train", "scda"])
+def test_the_optimizer_span_holds_every_update(name):
+    """One ``scda.optimizer`` a step, and inside it (the CPU's eager
+    chain) one in-place update of each trainable tensor, the
+    discriminator's too, and no other."""
+    run, state = make_path(name)
+    run()
+    _, events = traced(run)
+    (opt,) = [e for e in spans(events) if e.name == "scda.optimizer"]
+    tx = getattr(state, "det", state).tx
+    plain = len(state.d_momentum) if name == "scda" else 0
+    adds = [e for e in events if e.name == "aten::add_"]
+    assert len([e for e in adds if _inside(e, opt)]) == len(tx.names) + plain
+
+
 @pytest.mark.parametrize("d_update", ["joint", "alternating"])
 def test_adapt_backward_holds_the_adversarial_nodes_alone(d_update):
     """Every autograd node run inside ``scda.adapt.bwd`` was created after

@@ -1,4 +1,5 @@
-"""The output check's controls: the reference itself, computed in a lower
+"""The output check's controls: the reference itself (the module the
+cell's configuration names, ``cell.reference``), computed in a lower
 precision (``reference.precision``), put in the program's place on a
 run's own weights and inputs, and judged by ``judge`` as the program is.
 
@@ -20,13 +21,13 @@ from __future__ import annotations
 import torch
 
 from benchmark.harness import drive, judge
-from benchmark.reference import steps as R
 from benchmark.reference.precision import BY_NAME, FP8
 
 
 def control_numbers(cell, seed: int, device, prec=FP8) -> dict:
     if isinstance(prec, str):
         prec = BY_NAME[prec]
+    R = cell.reference
     _, cfg, weights, d_weights, pool, tgt = drive.prepare(cell, seed, device)
     to = lambda arrays: tuple(torch.from_numpy(a).to(device) for a in arrays)
     if cell.kind == "serve":
@@ -41,7 +42,7 @@ def control_numbers(cell, seed: int, device, prec=FP8) -> dict:
             entries.append({"image": image, "im_info": info, "calls": calls,
                             "dets": tuple(t.cpu() for t in out["dets"]),
                             "repeats_differing": 0})
-        return judge.judge_serve(entries, weights, cfg)
+        return judge.judge_serve(entries, weights, cfg, ref=R)
     pair = lambda k: (to(pool[k % len(pool)]),
                       to(tgt[k % len(tgt)]) if tgt is not None else None)
     k = drive.SETUP_STEPS
@@ -58,4 +59,5 @@ def control_numbers(cell, seed: int, device, prec=FP8) -> dict:
         "batch": pair(k), "metrics": last["metrics"][0],
         "calls": list(last["calls"][0]), "grad": last["last_grad"],
         "delta": {n: last["params"][n] - rec["params"][n] for n in last["params"]}}
-    return judge.judge_train(rec, weights, d_weights, batches, cfg, seed)
+    return judge.judge_train(rec, weights, d_weights, batches, cfg, seed,
+                             ref=R)

@@ -18,6 +18,7 @@ unit it divides by) runs a few units under ``torch.profiler`` with
 from __future__ import annotations
 
 import gc
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -129,6 +130,24 @@ def traced(unit, units: int, device, rec):
         events, window_s = prof.trace_units(run, lambda: sync(device))
         rec.trace = False
     return events, window_s, list(chains.calls)
+
+
+def device_ms_per_img(unit, units: int, images_per_unit: int, device) -> float:
+    """``device_ms_per_img``: the device's busy ms per image over ``units``
+    units, a whole cycle of the pool, so that every run of a seed reads
+    the same work (:func:`metrics.profile.device_busy_s`).  On a CPU
+    device (the tests) the device is the CPU: the cycle's wall time."""
+    def cycle():
+        for k in range(units):
+            unit(k)
+
+    if torch.device(device).type == "cuda":
+        busy = prof.device_busy_s(cycle, lambda: sync(device))
+    else:
+        t0 = time.perf_counter()
+        cycle()
+        busy = time.perf_counter() - t0
+    return 1e3 * busy / (units * images_per_unit)
 
 
 def trace_pass(cell, unit, units_done: int, window: float, img_per_s: float,

@@ -1,6 +1,7 @@
 """The output check: what the timed path produced, against the plain
-f32 reference (``benchmark/reference``), as numbers each held to a limit
-of its own (``benchmark/limits/<workload>.json``).
+f32 reference (``benchmark/reference``: the module the cell's
+configuration names, passed in as ``ref``), as numbers each held to a
+limit of its own (``benchmark/limits/<workload>.json``).
 
 Every number is a gap; a run is correct when each is at most its limit.
 A number with no limit on file fails.
@@ -72,7 +73,6 @@ from typing import Dict, List
 import torch
 
 from benchmark.reference import detect as D
-from benchmark.reference import steps as R
 from benchmark.reference.precision import F32
 
 
@@ -121,7 +121,7 @@ def split_discriminator(tensors: Dict[str, torch.Tensor]):
     return det, d
 
 
-def judge_window_step(w: dict, weights, cfg, seed: int) -> dict:
+def judge_window_step(w: dict, weights, cfg, seed: int, *, ref) -> dict:
     """The step after the window: ``w`` holds ``params`` and ``momentum``
     (the trainable leaves and their momentum before it, the
     discriminator's as ``D.<name>``), ``step`` (its count), ``batch``,
@@ -130,50 +130,52 @@ def judge_window_step(w: dict, weights, cfg, seed: int) -> dict:
     p_det, p_d = split_discriminator(w["params"])
     m_det, m_d = split_discriminator(w["momentum"])
     props = tuple(_props(o) for _, o in w["calls"])
-    ref = R.train_steps({**weights, **p_det}, p_d or None, [w["batch"]], cfg,
-                        F32, seed, 1, proposals=[props], step0=w["step"],
-                        momentum=m_det, d_momentum=m_d or None)
-    rg = ref["last_grad"]
+    r_out = ref.train_steps({**weights, **p_det}, p_d or None, [w["batch"]],
+                            cfg, F32, seed, 1, proposals=[props],
+                            step0=w["step"], momentum=m_det,
+                            d_momentum=m_d or None)
+    rg = r_out["last_grad"]
     g_norm = {n: float(rg[n].norm()) for n in rg}
     med = _median(list(g_norm.values()))
     moved = lambda n: g_norm[n] >= 1e-3 * med
-    d_ref = {n: ref["params"][n].float() - w["params"][n].float() for n in rg}
-    r_loss = ref["metrics"][0]["loss"]
+    d_ref = {n: r_out["params"][n].float() - w["params"][n].float() for n in rg}
+    r_loss = r_out["metrics"][0]["loss"]
     return {"window_loss_gap": abs(w["metrics"]["loss"] - r_loss)
             / max(abs(r_loss), 1e-30),
             "window_grad_gap": leaf_gap(w["grad"], rg),
             "window_update_gap": leaf_gap(w["delta"], d_ref, moved),
-            "_calls": (list(w["calls"]), ref["calls"][0])}
+            "_calls": (list(w["calls"]), r_out["calls"][0])}
 
 
-def judge_train(rec: dict, weights, d_weights, batches, cfg, seed: int) -> dict:
+def judge_train(rec: dict, weights, d_weights, batches, cfg, seed: int, *,
+                ref) -> dict:
     """``rec``: the program's (or a control's) first three steps:
     ``metrics`` (a dict a step), ``first_grad``, ``params`` (after the
     last step), ``calls`` (a list of propose calls a step); and where it
     has ``window``, the step after the window (:func:`judge_window_step`)."""
     steps = len(rec["metrics"])
     props = [tuple(_props(o) for _, o in calls) for calls in rec["calls"]]
-    ref = R.train_steps(weights, d_weights, batches, cfg, F32, seed, steps,
-                        proposals=props)
-    ref_losses = [r["loss"] for r in ref["metrics"]]
+    r_out = ref.train_steps(weights, d_weights, batches, cfg, F32, seed, steps,
+                            proposals=props)
+    ref_losses = [r["loss"] for r in r_out["metrics"]]
     loss = max(abs(m["loss"] - r["loss"]) / max(abs(r["loss"]), 1e-30)
-               for m, r in zip(rec["metrics"], ref["metrics"]))
-    rg = ref["first_grad"]
+               for m, r in zip(rec["metrics"], r_out["metrics"]))
+    rg = r_out["first_grad"]
     g_norm = {n: float(rg[n].norm()) for n in rg}
     med = _median(list(g_norm.values()))
     moved = lambda n: g_norm[n] >= 1e-3 * med
     start = {**weights, **({"D." + k: v for k, v in d_weights.items()}
                            if d_weights is not None else {})}
     d_prog = {n: rec["params"][n].float() - start[n].float() for n in rg}
-    d_ref = {n: ref["params"][n].float() - start[n].float() for n in rg}
+    d_ref = {n: r_out["params"][n].float() - start[n].float() for n in rg}
     out = {"loss_gap": loss,
            "grad_gap": leaf_gap(rec["first_grad"], rg),
            "update_gap": leaf_gap(d_prog, d_ref, moved)}
     prog_calls = [c for calls in rec["calls"] for c in calls]
-    ref_calls = [c for calls in ref["calls"] for c in calls]
-    del ref, d_prog, d_ref
+    ref_calls = [c for calls in r_out["calls"] for c in calls]
+    del r_out, d_prog, d_ref
     if "window" in rec:
-        win = judge_window_step(rec["window"], weights, cfg, seed)
+        win = judge_window_step(rec["window"], weights, cfg, seed, ref=ref)
         p_calls, r_calls = win.pop("_calls")
         prog_calls += p_calls
         ref_calls += r_calls
@@ -197,7 +199,7 @@ def _same_detections(a, b) -> int:
     return int((~same).sum())
 
 
-def judge_serve(entries: List[dict], weights, cfg) -> dict:
+def judge_serve(entries: List[dict], weights, cfg, *, ref) -> dict:
     """``entries``: one a pool entry: ``image``, ``im_info`` (device),
     ``calls`` (the judged request's recorded (site, arguments, output)
     calls), ``dets`` (its detections, on the host), ``repeats_differing``
@@ -215,12 +217,12 @@ def judge_serve(entries: List[dict], weights, cfg) -> dict:
         followed += 1
         prop_args, prop_out = by_site["propose"]
         (props, cls, deltas, im_info, _), _ = by_site["postprocess"]
-        ref = R.serve(weights, e["image"], e["im_info"], cfg, F32,
-                      proposals=_props(prop_out))
+        r_out = ref.serve(weights, e["image"], e["im_info"], cfg, F32,
+                          proposals=_props(prop_out))
         prog_calls.append((prop_args, prop_out))
-        ref_calls.extend(ref["calls"])
-        head = max(head, _rel_gap(cls, ref["head"][0]),
-                   _rel_gap(deltas, ref["head"][1]))
+        ref_calls.extend(r_out["calls"])
+        head = max(head, _rel_gap(cls, r_out["head"][0]),
+                   _rel_gap(deltas, r_out["head"][1]))
         props = _props(props)
         again = D.postprocess(props, *D.class_boxes(props, cls, deltas, im_info,
                                                     cfg), im_info, cfg)

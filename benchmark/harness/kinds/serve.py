@@ -82,7 +82,7 @@ def run(cell, seed, seconds, trace, device, t_start, faults):
                         "im_info": torch.from_numpy(info).to(device),
                         "calls": rec.latest[slot], "dets": dets,
                         "repeats_differing": differ})
-    numbers = judge.judge_serve(entries, weights, cfg_ref)
+    numbers = judge.judge_serve(entries, weights, cfg_ref, ref=cell.reference)
     correct, checks = judge.verdict(numbers, cell.limits, cell.not_compared)
     if trace:
         metrics_out = layer

@@ -6,9 +6,14 @@ feed; the output check follows them.  The window then runs for
 ``seconds``: each step takes its next host batch from the pool, copies it
 to the device with ``.to(device)`` and runs the step; the window ends in
 ``torch.cuda.synchronize()``.  ``train_img_s`` is the source images of
-every step over the window's length.  After the window (and the traced
-pass) the same step object takes one more step, on the state the window
-left, which the output check judges too.
+every step over the window's length.  Where the cell reports
+``device_ms_per_img``, an untraced run then takes two cycles of the pool
+under a profiler that records the device alone, and the second gives
+the device's busy ms per source image (``drive.device_ms_per_img``).
+After the window (and the traced pass) the same step object takes one
+more step, on the state the window left, which the output check judges
+too.  With ``--trace 0`` the result holds the cell's end-to-end metrics
+and no others.
 """
 
 from __future__ import annotations
@@ -18,7 +23,6 @@ import time
 import torch
 
 from benchmark.harness import drive, judge, program
-from benchmark.reference import steps as R
 
 
 def momentum_factors(tc):
@@ -85,15 +89,21 @@ def run(cell, seed, seconds, trace, device, t_start, faults):
     img_per_s = steps * batch / window
     peak = drive.peak(device)
 
-    layer = trace_info = breakdown = range_ms = None
+    wanted = {m["name"] for m in cell.end_to_end()}
+    layer = trace_info = breakdown = range_ms = dev_ms = None
     if trace:
         layer, trace_info, breakdown, range_ms = drive.trace_pass(
             cell, lambda k: unit(i + k), steps, window, img_per_s, cfg_ref,
             device, rec)
         i += int(cell.traffic.trace_units)
+    elif "device_ms_per_img" in wanted:
+        dev_ms = drive.device_ms_per_img(lambda k: unit(i + k), len(pool),
+                                         batch, device)
+        i += len(pool)
 
     # The step after the window, judged: the state before it, then after.
     names = program.trainable_state(state)
+    R = cell.reference
     doubled = set(R.doubled_biases(weights, R.trainable_names(weights, cfg_ref.model),
                                    cfg_ref.train))
     before = {"params": _clone(names),
@@ -124,14 +134,17 @@ def run(cell, seed, seconds, trace, device, t_start, faults):
                 tuple(drive.to_device(tgt[k], device)) if scda else None)
                for k in range(drive.SETUP_STEPS)]
     numbers = judge.judge_train(rec_out, weights, d_weights, batches, cfg_ref,
-                                seed)
+                                seed, ref=R)
     correct, checks = judge.verdict(numbers, cell.limits, cell.not_compared)
     if trace:
         metrics_out = layer
     else:
-        metrics_out = {"train_img_s": {"value": img_per_s, "unit": "images/s"},
-                       "setup_s": {"value": setup_s, "unit": "s"}}
-    notes = {"steps": steps, "window_s": window, "setup_s": setup_s,
+        every = {"train_img_s": {"value": img_per_s, "unit": "images/s"},
+                 "setup_s": {"value": setup_s, "unit": "s"},
+                 "device_ms_per_img": {"value": dev_ms, "unit": "ms"}}
+        metrics_out = {k: v for k, v in every.items() if k in wanted}
+    notes = {"steps": steps, "window_s": window, "img_per_s": img_per_s,
+             "setup_s": setup_s,
              "per_second": drive.per_second(ends, window),
              "losses": [m["loss"] for m in metrics],
              "ref_losses": numbers["_ref_losses"],

@@ -4,7 +4,10 @@ found by name:
 
 * ``benchmark/configs/<config>.json``: the model configuration as it is
   run (the program's ``Config`` fields, grouped as the program groups
-  them), its source, its precision per path;
+  them), its source, its precision per path; an optional ``reference``
+  names its plain reference, ``benchmark/reference/<reference>.py``
+  (``steps`` where it names none); its cut for the CPU tests, where it
+  has one, is ``benchmark/tests/cuts/<config>.json``;
 * ``benchmark/traffic/<traffic>.json``: the mix (sizes, pools, batch,
   fog, and ``kind``);
 * ``benchmark/harness/kinds/<kind>.py``: the driver of a mix's kind
@@ -61,6 +64,8 @@ class Cell:
         self.config_dict = load_json(os.path.join(root, cfg_entry["file"]))
         self.cfg = ns({k: self.config_dict[k] for k in
                        ("model", "train", "test", "anchors", "adapt", "data")})
+        self.reference = reference(self.config_dict.get("reference", "steps"),
+                                   root)
         self.traffic_dict = load_json(os.path.join(
             root, "benchmark", "traffic", self.entry["traffic"] + ".json"))
         self.traffic = ns(self.traffic_dict)
@@ -111,6 +116,16 @@ def kind_runner(kind: str, root: str = ROOT):
         raise KeyError(f"no traffic kind named {kind!r}")
     return _load("kind", kind, os.path.join(
         root, "benchmark", "harness", "kinds", kind + ".py")).run
+
+
+def reference(name: str, root: str = ROOT):
+    """``benchmark/reference/<name>.py``, the plain reference a
+    configuration names (the interface: ``reference/__init__.py``); an
+    unknown name raises."""
+    if not isinstance(name, str) or not NAME.match(name):
+        raise KeyError(f"no reference named {name!r}")
+    return _load("reference", name, os.path.join(
+        root, "benchmark", "reference", name + ".py"))
 
 
 def readers(cell: Cell) -> Dict[str, object]:

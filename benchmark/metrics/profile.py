@@ -1,7 +1,7 @@
 """Per-layer numbers of a traced run, from one ``torch.profiler`` pass.
 
 ``KINDS``, ``PORT_KERNELS`` and :func:`summarize` are a frozen copy of
-``scda_tpu_torch/utils/profile.py`` at commit 8b959ad8dec4 (kernels by
+``scda_tpu_torch/utils/profile.py`` at commit 93bf85b9b08d (kernels by
 kind, the program's own kernels by name, busy share against an
 unprofiled wall time).  :func:`trace_units` is that file's
 ``profile_pass`` (a discarded warm-up step so that the tracer has
@@ -17,7 +17,14 @@ started, the recorded step 50 ms in) returning the whole trace, and
 * the ten device operations that took most time, and the idle gaps
   between kernels summed by what the host was doing when the device
   went idle (the innermost host operation, with the ``bench.*`` range
-  around it).
+  around it);
+* ``span_ms``: the device ms of the work launched inside each of the
+  program's ``scda.*`` spans, by span name (:func:`span_times`, a frozen
+  copy of ``scda_tpu_torch/utils/profile.py``'s ``span_times`` at commit
+  93bf85b9b08d: a kernel, copy or fill counts in a span where its
+  runtime call, found by correlation id, starts while the span is open,
+  on any thread, autograd's included).  Readers take it as
+  ``run.trace["span_ms"]``; it is empty where the program opened no span.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ KINDS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
                            "nchwToNhwc", "nhwcToNchw", "cublas")),
     ("copy", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
     ("optimizer foreach", ("multi_tensor",)),
+    ("optimizer sgd", ("sgd_norm_", "sgd_update_")),
     ("sort/scan/reduce", ("sort", "Sort", "scan", "reduce", "Reduce",
                           "cub::", "topk", "TopK")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise", "fill",
@@ -52,10 +60,13 @@ PORT_KERNELS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("K3 vgg_stem", ("vgg_stem_bf16_kernel", "vgg_stem_f32_kernel")),
     ("K4 bottleneck_chain", ("chain_wgmma_kernel", "chain_gemm_f32_kernel")),
     ("K4 bottleneck_chain_bwd", ("chain_bwd_",)),
+    ("sgd_chain", ("sgd_norm_partial_kernel", "sgd_norm_finish_kernel",
+                   "sgd_update_kernel")),
 )
 
 Row = Tuple[str, int, float]     # (kernel name, launches, device ms)
 RANGE_PREFIX = "bench."
+SPAN_PREFIX = "scda."
 
 
 def _first(key: str, table) -> Optional[str]:
@@ -119,6 +130,26 @@ def trace_units(run: Callable[[], object], sync: Callable[[], None]):
     return list(prof.events()), window_s
 
 
+def device_busy_s(run: Callable[[], object], sync: Callable[[], None]) -> float:
+    """The seconds in which the device ran work (kernels, copies, fills:
+    the union of their intervals) in one recorded ``run()``, after a
+    discarded one, as :func:`trace_units` records; the profiler records
+    the device's activity alone."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for step in range(2):
+            if step:
+                time.sleep(0.05)
+            run()
+            sync()
+            prof.step()
+    return _union_us([_span(e) for e in prof.events()
+                      if _is_device(e) and not _is_annotation(e)]) / 1e6
+
+
 def _is_device(e) -> bool:
     return getattr(e.device_type, "name", str(e.device_type)) == "CUDA"
 
@@ -160,6 +191,33 @@ def _range_times(kernels, annotations) -> Dict[str, float]:
                 ms += (spans[i][1] - spans[i][0]) / 1e3
             i += 1
         out[a.name] = out.get(a.name, 0.0) + ms
+    return out
+
+
+def span_times(events, prefix: str = SPAN_PREFIX) -> Dict[str, float]:
+    """Device ms of the work launched inside each ``prefix`` span, summed
+    by name over its instances: every kernel, copy or fill whose host
+    call (the runtime call with its correlation id) starts while the span
+    is open, on any thread, so that a step's span holds the kernels
+    autograd's thread launches for it.  A kernel counts in every span
+    around it."""
+    launched = {e.id: _span(e)[0] for e in events
+                if not _is_device(e) and e.name.startswith("cu")}
+    work = sorted((launched[e.id], (_span(e)[1] - _span(e)[0]) / 1e3)
+                  for e in events if _is_device(e) and e.id in launched
+                  and not getattr(e, "is_user_annotation", False))
+    starts = [t for t, _ in work]
+    total = [0.0]
+    for _, ms in work:
+        total.append(total[-1] + ms)
+    out: Dict[str, float] = {}
+    for e in events:
+        if _is_device(e) or not e.name.startswith(prefix):
+            continue
+        s0, s1 = _span(e)
+        ms = (total[bisect.bisect_right(starts, s1)]
+              - total[bisect.bisect_left(starts, s0)])
+        out[e.name] = out.get(e.name, 0.0) + ms
     return out
 
 
@@ -222,4 +280,5 @@ def read_trace(events, window_s: float, units: int,
         "device_ops": [[n[:120], ms / 1e3] for n, (_, ms) in top],
         "idle_gaps": [[k[:120], v] for k, v in
                       sorted(idle.items(), key=lambda kv: -kv[1])[:10]],
+        "span_ms": span_times(events),
     }

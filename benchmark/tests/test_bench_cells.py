@@ -1,7 +1,8 @@
 """The benchmark on the CPU: its files load, each cell runs end to end at
 the program's ``tiny`` size and prints its result line, the yardstick's
-frozen copies equal their originals, and the output check fails what it
-must fail."""
+frozen copies equal their originals, the output check fails what it
+must fail, and a configuration that names a reference and a CPU cut of
+its own is added as data alone."""
 
 from __future__ import annotations
 
@@ -17,11 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import control, drive, judge
+from benchmark.harness import control, drive, judge, spec
 from benchmark.harness.spec import Cell, kind_runner, reader
 from benchmark.metrics import flops, roofline
 from benchmark.metrics import profile as prof
-from benchmark.tests.tiny import BENCH, ROOT, tiny_root
+from benchmark.tests.tiny import BENCH, ROOT, TINY_LIMITS, tiny_config, tiny_root
 from benchmark.traffic import scenes
 
 with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
@@ -129,17 +130,21 @@ def test_a_tiny_run_prints_its_result_line(root, name, trace):
         assert {"busy_s", "window_s"} <= set(line["device"])
 
 
+def _changed_files(root):
+    """Files of the repository's benchmark that the checkout at ``root``
+    holds changed."""
+    def changed(d):
+        return d.diff_files + [x for sub in d.subdirs.values() for x in changed(sub)]
+
+    return changed(filecmp.dircmp(BENCH, os.path.join(root, "benchmark"),
+                                  ignore=["__pycache__"]))
+
+
 def test_cells_added_as_data_leave_the_harness_untouched(root):
     """``tiny_root`` adds configurations, mixes, limits and cells as new
     files and entries; every file of the benchmark it copied is the
     repository's, and the new cells run (the test above)."""
-    cmp = filecmp.dircmp(BENCH, os.path.join(root, "benchmark"),
-                         ignore=["__pycache__"])
-
-    def changed(d):
-        return d.diff_files + [x for sub in d.subdirs.values() for x in changed(sub)]
-
-    assert changed(cmp) == []
+    assert _changed_files(root) == []
     bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
     assert {"tiny_" + c for c in CELLS} <= {w["name"] for w in bench["workloads"]}
 
@@ -207,6 +212,17 @@ def _half_the_batch(forward):
     return broken
 
 
+def _half_the_batch_step(step):
+    """A step that leaves out the second half of its source batch and takes
+    the mean over the rest: the first half stands in its place."""
+    def broken(state, image, im_info, gt_boxes, num_boxes, *target):
+        h = image.shape[0] // 2
+        first = lambda t: torch.cat([t[:h], t[:h]])
+        return step(state, first(image), first(im_info), first(gt_boxes),
+                    first(num_boxes), *target)
+    return broken
+
+
 def _state_unchanged_after_warm_up(step):
     """A step that goes wrong only after the set-up's steps: the window's
     fault the set-up steps cannot see."""
@@ -262,6 +278,8 @@ def test_a_forward_that_hides_its_call_sites_is_not_judged_correct(root, name):
 @pytest.mark.parametrize("name,fault,broken", [
     ("vgg16-scda-bs1", "step", _state_unchanged),
     ("res101_ms-train-bs1", "step", _state_unchanged),
+    ("vgg16-train-bs8", "step", _state_unchanged),
+    ("vgg16-train-bs8", "step", _half_the_batch_step),
     ("vgg16-serve-bs1", "forward", _answer_altered),
     ("res101_ms-serve-bs8", "forward", _answer_altered),
     ("res101_ms-serve-bs8", "forward", _half_the_batch),
@@ -296,6 +314,188 @@ def test_the_fp8_control_fails_at_the_cells_size(name):
     numbers = control.control_numbers(cell, 4000000099, torch.device("cuda", 0))
     correct, checks = judge.verdict(numbers, cell.limits, cell.not_compared)
     assert correct is False, checks
+
+
+# ---- a configuration with a reference and a CPU cut of its own ------------
+
+PROBE_CUT = {"model": {"backbone": "tiny"}, "adapt": {"d_channels": 16},
+             "data": {"image_size": [64, 128]}}
+
+
+def _write_json(path, obj):
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def _write_probe_reference(root):
+    """``reference/steps_probe.py``: ``steps.py`` with the RoI head's class
+    logits scaled by 1.5, in serving and in training."""
+    with open(os.path.join(BENCH, "reference", "steps.py")) as f:
+        src = f.read()
+    assert src.count("N.roi_head(") == 2
+    src = src.replace("N.roi_head(", "_scaled_head(") + (
+        "\n\ndef _scaled_head(*args, **kwargs):\n"
+        "    cls, deltas = N.roi_head(*args, **kwargs)\n"
+        "    return 1.5 * cls, deltas\n")
+    with open(os.path.join(root, "benchmark", "reference", "steps_probe.py"),
+              "w") as f:
+        f.write(src)
+
+
+def _add_configuration(root, name, base, mix_of, **keys):
+    """Configuration ``name`` (``base``'s file with ``keys`` added) in the
+    checkout at ``root``, with its CPU cut ``PROBE_CUT`` in
+    ``tests/cuts/<name>.json`` and cut by ``tiny_config``, and one cell
+    over the tiny mix of the cell ``mix_of``: new files and entries only.
+    Returns the cell's name."""
+    bench_dir = os.path.join(root, "benchmark")
+    with open(os.path.join(bench_dir, "configs", base + ".json")) as f:
+        cfg = json.load(f)
+    _write_json(os.path.join(bench_dir, "configs", name + ".json"),
+                {**cfg, **keys})
+    os.makedirs(os.path.join(bench_dir, "tests", "cuts"), exist_ok=True)
+    _write_json(os.path.join(bench_dir, "tests", "cuts", name + ".json"),
+                PROBE_CUT)
+    tiny = "tiny_" + name
+    _write_json(os.path.join(bench_dir, "configs", tiny + ".json"),
+                tiny_config(name, bench_dir))
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    entry = {c["name"]: c for c in bench["configs"]}[base]
+    bench["configs"].append({**entry, "name": tiny,
+                             "file": f"benchmark/configs/{tiny}.json",
+                             "reduced": sorted(PROBE_CUT)})
+    like = {w["name"]: w for w in bench["workloads"]}["tiny_" + mix_of]
+    cell = f"{tiny}-{mix_of}"
+    bench["workloads"].append({**like, "name": cell, "config": tiny})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if like["name"] in m.get("workloads", []):
+            m["workloads"].append(cell)
+    _write_json(os.path.join(bench_dir, "limits", cell + ".json"),
+                {"limits": TINY_LIMITS})
+    _write_json(os.path.join(root, "BENCHMARK.json"), bench)
+    return cell
+
+
+PROBE_CELLS = (("vgg16", "vgg16-serve-bs1", "head_gap"),
+               ("res101_ms", "res101_ms-train-bs1", "grad_gap"))
+
+
+@pytest.fixture(scope="module")
+def probe_root(tmp_path_factory):
+    """A checkout as ``tiny_root`` builds one, with, for each of
+    ``PROBE_CELLS``, a configuration that names ``steps_probe`` with a
+    CPU cut of its own in ``tests/cuts``, and the same configuration
+    without the reference key; no harness file changes."""
+    root = tiny_root(str(tmp_path_factory.mktemp("probe")))
+    _write_probe_reference(root)
+    for base, mix_of, _ in PROBE_CELLS:
+        _add_configuration(root, f"probe_{base}", base, mix_of,
+                           reference="steps_probe")
+        _add_configuration(root, f"plain_{base}", base, mix_of)
+    assert _changed_files(root) == []
+    return root
+
+
+@pytest.fixture
+def steps_unreachable(monkeypatch):
+    """The package's ``reference.steps`` raises when called: a harness file
+    that still imports it in place of the cell's reference fails."""
+    from benchmark.reference import steps
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("called benchmark.reference.steps directly")
+
+    for fn in ("serve", "train_steps", "trainable_names", "doubled_biases",
+               "first_gradient"):
+        monkeypatch.setattr(steps, fn, refuse)
+
+
+def test_a_configuration_states_its_own_cpu_cut(probe_root):
+    """The cut file ``tests/cuts/<config>.json`` is set over the
+    configuration; without one, the cut is the tiny backbone as before."""
+    bench_dir = os.path.join(probe_root, "benchmark")
+    cut = tiny_config("probe_vgg16", bench_dir)
+    assert cut["reference"] == "steps_probe"
+    assert cut["data"]["image_size"] == [64, 128]
+    assert cut["adapt"]["d_channels"] == 16
+    assert cut["model"]["backbone"] == "tiny"
+    assert cut["model"]["compute_dtype"] == "float32"
+    assert Cell("tiny_probe_vgg16-vgg16-serve-bs1", probe_root).cfg.data.image_size \
+        == [64, 128]
+    for c in BENCHMARK["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            old = json.load(f)
+        old["name"] = "tiny_" + c["name"]
+        old["model"].update(backbone="tiny", compute_dtype="float32")
+        old["test"]["bf16_weights"] = False
+        old["data"].update(image_size=[64, 96], scale=64, max_size=96)
+        old["adapt"]["d_channels"] = 32
+        assert tiny_config(c["name"]) == old
+
+
+@pytest.mark.parametrize("base,mix_of,fails", PROBE_CELLS)
+def test_a_cell_is_judged_by_the_reference_its_configuration_names(
+        probe_root, steps_unreachable, base, mix_of, fails):
+    """``steps_probe``'s head differs from the program's: the run is not
+    correct, and ``fails`` is among the numbers that fail."""
+    cell = Cell(f"tiny_probe_{base}-{mix_of}", probe_root)
+    assert os.path.basename(cell.reference.__file__) == "steps_probe.py"
+    r = _run(cell, seed=17)
+    assert r["correct"] is False
+    failing = {k for k, c in r["checks"].items()
+               if c.get("compared", True) and not c["value"] <= c["limit"]}
+    assert fails in failing, r["checks"]
+
+
+@pytest.mark.parametrize("base,mix_of,fails", PROBE_CELLS)
+def test_the_same_configuration_without_the_key_is_correct(
+        probe_root, steps_unreachable, base, mix_of, fails):
+    cell = Cell(f"tiny_plain_{base}-{mix_of}", probe_root)
+    assert os.path.basename(cell.reference.__file__) == "steps.py"
+    r = _run(cell, seed=17)
+    assert r["correct"] is True, r["checks"]
+
+
+def test_the_fp8_control_goes_through_the_named_reference(
+        probe_root, steps_unreachable):
+    cell = Cell("tiny_probe_vgg16-vgg16-serve-bs1", probe_root)
+    calls = []
+    serve = cell.reference.serve
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("proposals") is None)
+        return serve(*args, **kwargs)
+
+    cell.reference.serve = counted
+    numbers = control.control_numbers(cell, 13, torch.device("cpu"))
+    # One call a pool entry as the control, one as the reference judging it.
+    n = len(drive.make_inputs(cell, 13)[1])
+    assert calls.count(True) == n and calls.count(False) == n
+    assert numbers["head_gap"] > 0
+
+
+def test_a_reference_with_no_file_is_refused(probe_root):
+    with pytest.raises(KeyError):
+        spec.reference("no_such_reference", probe_root)
+    for bad in ("../reference/steps", "", None, "steps.py"):
+        with pytest.raises(KeyError):
+            spec.reference(bad, probe_root)
+    bench_dir = os.path.join(probe_root, "benchmark")
+    with open(os.path.join(bench_dir, "configs", "probe_vgg16.json")) as f:
+        cfg = json.load(f)
+    cfg["reference"] = "no_such_reference"
+    _write_json(os.path.join(bench_dir, "configs", "probe_vgg16.json"), cfg)
+    _write_json(os.path.join(bench_dir, "configs", "tiny_probe_vgg16.json"),
+                tiny_config("probe_vgg16", bench_dir))
+    try:
+        with pytest.raises(KeyError, match="no_such_reference"):
+            Cell("tiny_probe_vgg16-vgg16-serve-bs1", probe_root)
+    finally:
+        cfg["reference"] = "steps_probe"
+        _write_json(os.path.join(bench_dir, "configs", "probe_vgg16.json"), cfg)
+        _write_json(os.path.join(bench_dir, "configs", "tiny_probe_vgg16.json"),
+                    tiny_config("probe_vgg16", bench_dir))
 
 
 # ---- the yardstick's frozen copies -----------------------------------------
@@ -333,6 +533,27 @@ def test_mfu_and_rooflines_on_fixed_numbers():
     assert roofline.share_pct(1.0, 0.0) is None and roofline.mfu_pct(0.0, per) is None
 
 
+def test_the_scda_readers_on_fixed_numbers():
+    """The SCDA cell's per-layer readers: the window's rate as it is, the
+    model FLOPs over the device's busy time, launches per source image;
+    nothing for another kind or a trace with no device time."""
+    from types import SimpleNamespace
+
+    cell = Cell("vgg16-scda-bs1")
+    per = flops.scda_step_flops_per_src_image(cell.cfg, (512, 1024))
+    trace = {"busy_s": 0.048, "summary": {"kernels_per_unit": 3122.0}}
+    run = SimpleNamespace(kind="scda", cfg=cell.cfg, img_per_s=14.2, units=3,
+                          images_per_unit=1, trace=trace)
+    assert reader("train_img_s.scda")(run) == 14.2
+    assert math.isclose(reader("mfu.scda")(run), 100 * 3 / 0.048 * per / 989e12)
+    assert 0 < reader("mfu.scda")(run) < 100
+    assert reader("launches_per_img.scda")(run) == 3122.0
+    for name in ("train_img_s.scda", "mfu.scda", "launches_per_img.scda"):
+        assert reader(name)(SimpleNamespace(**{**vars(run), "kind": "train"})) is None
+    assert reader("mfu.scda")(SimpleNamespace(
+        **{**vars(run), "trace": {**trace, "busy_s": 0.0}})) is None
+
+
 def test_roofline_copy_equals_chip_smokes():
     sys.path.insert(0, ROOT)
     import chip_smoke
@@ -355,6 +576,19 @@ def test_profile_copy_equals_the_programs():
     assert prof.summarize(rows, 2, 10.0) == port_profile.summarize(rows, 2, 10.0)
     assert prof.KINDS == port_profile.KINDS
     assert prof.PORT_KERNELS == port_profile.PORT_KERNELS
+
+
+def test_span_times_copy_equals_the_programs():
+    """``read_trace``'s ``span_ms`` is the program's ``span_times`` on the
+    program's own fixed events, and empty where no span opened."""
+    from scda_tpu_torch.utils import profile as port_profile
+    from tests.test_torch_spans import fixed_events
+
+    for with_spans in (True, False):
+        events = fixed_events(with_spans)
+        got = prof.read_trace(events, 0.002, 1, 2.0)["span_ms"]
+        assert got == port_profile.span_times(events)
+        assert bool(got) is with_spans
 
 
 def test_scene_copy_equals_the_programs():

@@ -1,6 +1,7 @@
-"""A copy of the benchmark in a temporary directory with cells cut to the
-program's ``tiny`` test backbone, for runs on the CPU: only data files
-are added, no harness file changes."""
+"""A copy of the benchmark in a temporary directory with cells cut to a
+size the CPU runs, for the tests: only data files are added, no harness
+file changes.  A configuration's cut is ``tests/cuts/<config>.json``
+where there is one, and otherwise the program's ``tiny`` test backbone."""
 
 from __future__ import annotations
 
@@ -18,15 +19,24 @@ TINY_LIMITS = {"loss_gap": 1e-4, "grad_gap": 1e-3, "update_gap": 1e-3,
                "repeat_mismatch": 0, "entries_not_followed": 0}
 
 
-def tiny_config(name: str) -> dict:
-    """``name``'s configuration on the tiny backbone at 64x96, in f32."""
-    with open(os.path.join(BENCH, "configs", name + ".json")) as f:
+def tiny_config(name: str, bench: str = BENCH) -> dict:
+    """``name``'s configuration cut for the CPU, in f32 at 64x96: its cut
+    file ``tests/cuts/<name>.json`` (group -> fields, set over the
+    configuration, the canvas included) where there is one, else the tiny
+    backbone with a 32-channel discriminator."""
+    with open(os.path.join(bench, "configs", name + ".json")) as f:
         cfg = json.load(f)
+    cut_file = os.path.join(bench, "tests", "cuts", name + ".json")
+    cut = {"model": {"backbone": "tiny"}, "adapt": {"d_channels": 32}}
+    if os.path.exists(cut_file):
+        with open(cut_file) as f:
+            cut = json.load(f)
     cfg["name"] = "tiny_" + name
-    cfg["model"].update(backbone="tiny", compute_dtype="float32")
+    cfg["model"]["compute_dtype"] = "float32"
     cfg["test"]["bf16_weights"] = False
     cfg["data"].update(image_size=[64, 96], scale=64, max_size=96)
-    cfg["adapt"]["d_channels"] = 32
+    for group, fields in cut.items():
+        cfg[group].update(fields)
     return cfg
 
 
@@ -54,7 +64,7 @@ def tiny_root(tmp: str, limits=None) -> str:
         name = "tiny_" + c["name"]
         path = f"benchmark/configs/{name}.json"
         with open(os.path.join(root, path), "w") as f:
-            json.dump(tiny_config(c["name"]), f)
+            json.dump(tiny_config(c["name"], os.path.join(root, "benchmark")), f)
         bench["configs"].append({**c, "name": name, "file": path,
                                  "reduced": ["model", "data"]})
     for w in list(bench["workloads"]):

@@ -12,6 +12,9 @@ kernels:
     6000 -> 300 when serving, 12000 -> 2000 when training, 9 classes;
   * ResNet-101 Faster R-CNN with multiscale RoI-Align (BASELINE config
     #5, ``cfgs/res101_ms.yml``): the same canvas, proposals and classes.
+  * ResNet-101-FPN Faster R-CNN (the ``res101_fpn`` preset, Detectron's
+    ``e2e_faster_rcnn_R-101-FPN_1x``), training only: full 1024x2048
+    frames at bs 2, proposals 2000 -> 2000 a level, 9 classes.
 
 Phases, each printing one JSON line; any failure raises and exits
 non-zero:
@@ -47,7 +50,11 @@ non-zero:
      outputs perturbed by rounding-sized noise, which sets the bound),
      and its losses against the same step on the CPU; last, ResNet-101
      multiscale through ``cli.trainval`` for 4 steps (finite losses, K4's
-     backward launched twice a step);
+     backward launched twice a step); and ResNet-101-FPN at bs 2 on full
+     1024x2048 frames (the benchmark's ``res101_fpn-train-bs2``), its
+     launches per step, and every K1, K2 (forward and backward), K4
+     (forward and backward) and optimizer call of one step against its
+     twin, with times and bounds per level and stage;
   6. scda    — the SCDA adaptation step on VGG16 (BASELINE configs #3 and
      #4: ``cfgs/scda_foggy.yml`` joint at bs 1 and 8, 9 classes;
      ``cfgs/scda_sim10k_car.yml`` car-only, class-agnostic, alternating
@@ -126,8 +133,8 @@ peak: a yardstick that gates nothing.
 The last lines are the ``nvidia-smi`` line, the kernels summary and
 ``{"ok": true, "device": {...}}``.  While working on one path,
 ``python3 chip_smoke.py --only vgg16_scda`` (a comma-separated subset of
-``vgg16,res101_ms,vgg16_train,res101_ms_train,vgg16_scda,vgg16_surface,
-bench_batches,learning,car,protocols,tools``) runs just
+``vgg16,res101_ms,vgg16_train,res101_ms_train,res101_fpn_train,vgg16_scda,
+vgg16_surface,bench_batches,learning,car,protocols,tools``) runs just
 that and ends with ``{"ok": false, "partial": [...]}``: only the run
 with no arguments is the check.  It imports nothing of JAX and nothing
 of the JAX package.
@@ -153,6 +160,13 @@ TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
 RES_TRAIN_WARMUP = 2
 RES_TRAIN_STEPS = 5
+# ResNet-101-FPN training on full frames (the benchmark's
+# ``res101_fpn-train-bs2``): canvas, frames, steps.
+FPN_CANVAS = (1024, 2048)
+FPN_FRAMES = 4
+FPN_BS = 2
+FPN_TRAIN_WARMUP = 2
+FPN_TRAIN_STEPS = 5
 TRAIN_SEED = 3
 SCDA_WARMUP = 3
 SCDA_STEPS = 10
@@ -661,9 +675,12 @@ class Port:
     def mfu(flops_per_image, img_per_s):
         """The model FLOPs per image (``utils/flops.py``, the JAX
         package's count) and the share of the card's bf16 peak that
-        ``img_per_s`` of them make: a yardstick, it gates nothing."""
+        ``img_per_s`` of them make: a yardstick, it gates nothing.  None
+        where the count has no model (an FPN's: the benchmark's
+        ``mfu.train_fpn`` reads it)."""
         return {"model_flops_per_image": flops_per_image,
-                "mfu": img_per_s * flops_per_image / PEAK_BF16_FLOPS}
+                "mfu": (None if flops_per_image is None else
+                        img_per_s * flops_per_image / PEAK_BF16_FLOPS)}
 
     def profile_pass(self, run, units, path, wall_ms_per_unit):
         """One ``torch.profiler`` pass over ``run()`` (``units`` images or
@@ -1005,13 +1022,13 @@ class Port:
 
     # ---- training --------------------------------------------------------
 
-    def train_cfgs(self, preset, bs, yaml=None):
+    def train_cfgs(self, preset, bs, yaml=None, canvas=CANVAS):
         """(f32, bf16) train configs of a preset (overlaid with ``yaml``)
-        at the canvas and batch size ``bs``."""
+        at ``canvas`` and batch size ``bs``."""
         cfg = self.get_config(preset)
         if yaml:
             cfg = self.config_from_yaml(yaml, base=cfg)
-        cfg = self.replace_path(cfg, "data.image_size", CANVAS)
+        cfg = self.replace_path(cfg, "data.image_size", canvas)
         cfg = self.replace_path(cfg, "train.batch_size", bs)
         cfg = self.replace_path(cfg, "train.seed", TRAIN_SEED)
         return (self.replace_path(cfg, "model.compute_dtype", "float32"),
@@ -1138,7 +1155,8 @@ class Port:
               "img_per_s_unit": "source images",
               "warmup_steps": warmup, "timed_steps": steps,
               "img_per_s_median": median(rates), "img_per_s": rates,
-              **self.mfu((self.flops.scda_step_flops_per_src_image
+              **self.mfu(None if cfg.model.backbone.endswith("_fpn") else
+                         (self.flops.scda_step_flops_per_src_image
                           if tgt_batches else
                           self.flops.train_flops_per_image)(cfg, CANVAS),
                          median(rates)),
@@ -1189,7 +1207,7 @@ class Port:
 
         return snapshot
 
-    def check_roi_bwd(self, calls, allow_zero=False):
+    def check_roi_bwd(self, calls, allow_zero=False, canvas=CANVAS):
         """The K2 backward on recorded calls (labelled by batch size and
         the map's stride), against its twin, for f32 and bf16 features.  The cotangent is scaled to a largest
         magnitude of 1 first (the map is linear in it), so that the
@@ -1200,7 +1218,7 @@ class Port:
         torch = self.torch
         err_max, results = 0.0, []
         for (wy, wx, g, h, w, _), _ in calls:
-            label = f"bs{g.shape[0]}_R{g.shape[1]}_stride{CANVAS[0] // h}"
+            label = f"bs{g.shape[0]}_R{g.shape[1]}_stride{canvas[0] // h}"
             scale = float(g.abs().max().item())
             recorded = scale > 0
             require(recorded or allow_zero,
@@ -1867,6 +1885,134 @@ def res101_ms_train_path(port, device, frames):
                     ("RCNN_base.5.", "RCNN_base.6."))
     return summary, {"res101_ms_train_bs1": launches,
                      "res101_ms_trainval_cli": res101_trainval_cli(port)}
+
+
+def fpn_kernel_checks(port, records, path):
+    """Every kernel call of one recorded FPN train step against its twin
+    on the inputs the step gave it, with times and bounds: K1 once a
+    pyramid level (P2 .. P6), K2 forward and backward once a level (P2 ..
+    P5; a slot of another level is a box off the map, whose weights are
+    all zero), K4 forward on the four stages (layer4 at C=2048, F=512)
+    and its backward on layer2 to layer4, then the optimizer's pass."""
+    torch = port.torch
+    canvas_h = FPN_CANVAS[0]
+    summary = {}
+
+    calls = records["nms"]
+    labels = [f"P{2 + i}" for i in range(len(calls))]
+    nms_err, nms_results = port.check_nms(calls, labels)
+    nms_times = [{"level": label, "shape": list(args[1].shape),
+                  "max_output": kw["max_output"],
+                  **port.nms_times(args[0], args[1], kw, 2)}
+                 for label, (args, kw) in zip(labels, calls)]
+    summary["nms"] = {
+        "max_abs_err": float(nms_err),
+        **{f"fpn_{key}": sum(t[key] for t in nms_times)
+           for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes")},
+        "fpn_levels": nms_times}
+    emit({"phase": "kernel", "path": path, "kernel": "nms",
+          "cases": nms_results, "library_ms": None,
+          "library_reason": NO_LIBRARY, **summary["nms"]})
+
+    fwd = [((wy.detach(), wx.detach(), feat.detach()), {})
+           for (wy, wx, feat), _ in records["roi_align"]]
+    with torch.no_grad():
+        roi_err, roi_results = port.check_roi(
+            fwd, [f"P{round(math.log2(canvas_h / f[2].shape[1]))}"
+                  for f, _ in fwd])
+        roi_times = []
+        for (wy, wx, feat), _ in fwd:
+            live = (wy != 0).any(-1).any(-1)        # (B, R): on this level
+            roi_times.append({
+                "feat": list(feat.shape), "slots": list(live.shape),
+                "rois_on_level": int(live.sum().item()),
+                "ms": time_ms(torch, lambda: port.rk.roi_align_contract(
+                    wy, wx, feat), 20),
+                "plain_ms": time_ms(torch, lambda: port.rk.
+                                    roi_align_contract_plain(wy, wx, feat), 3),
+                **roi_bound(wy, wx, feat,
+                            port.rk.roi_align_contract(wy, wx, feat))})
+    summary["roi_align"] = {
+        "max_abs_err": roi_err,
+        **{f"fpn_{key}": sum(t[key] for t in roi_times)
+           for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes")},
+        "fpn_levels": roi_times}
+    emit({"phase": "kernel", "path": path, "kernel": "roi_align",
+          "cases": roi_results, "library_ms": None, "library_reason":
+          "no einsum yardstick at P2: its first product alone is 13 G "
+          "elements", **summary["roi_align"]})
+
+    # A level that no sampled roi went to gets an all-zero cotangent.
+    bwd = records["roi_align_bwd"]
+    bwd_err, bwd_results = port.check_roi_bwd(bwd, allow_zero=True,
+                                              canvas=FPN_CANVAS)
+    bwd_times = []
+    for (wy, wx, g, h, w, dt), _ in bwd:
+        parts = port.device_kernel_ms(   # its two launches apart
+            lambda: port.rk.roi_align_contract_bwd(wy, wx, g, h, w, dt),
+            ("roi_align_bwd_lists", "roi_align_contract_bwd"))
+        bwd_times.append({
+            "g": list(g.shape), "feat_hw": [h, w], "dtype": str(dt),
+            "rois_on_level": int((wy != 0).any(-1).any(-1).sum().item()),
+            "lists_ms": parts["roi_align_bwd_lists"],
+            "gather_ms": parts["roi_align_contract_bwd"],
+            "ms": time_ms(torch, lambda: port.rk.roi_align_contract_bwd(
+                wy, wx, g, h, w, dt), 20),
+            "plain_ms": time_ms(torch, lambda: port.rk.
+                                roi_align_contract_bwd_plain(wy, wx, g, dt),
+                                3),
+            **roi_bound(wy, wx, port.rk.roi_align_contract_bwd(
+                wy, wx, g, h, w, dt), g)})
+    summary["roi_align_bwd"] = {
+        "max_abs_err": bwd_err,
+        **{f"fpn_{key}": sum(t[key] for t in bwd_times)
+           for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes")},
+        "fpn_levels": bwd_times}
+    emit({"phase": "kernel", "path": path, "kernel": "roi_align_bwd",
+          "cases": bwd_results, **summary["roi_align_bwd"]})
+
+    results, stages = [], []
+    with torch.no_grad():
+        for i, (args, kwargs) in enumerate(records["bottleneck_chain"]):
+            args = tuple(a.detach() for a in args)
+            results += port.check_chain(args, f"layer{i + 1}", 2.0 ** -5)
+            stages.append(port.chain_times(args, f"layer{i + 1}"))
+    summary["bottleneck_chain"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in results),
+        **{f"fpn_{key}": sum(st[key] for st in stages)
+           for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes")},
+        "fpn_stages": stages}
+    emit({"phase": "kernel", "path": path, "kernel": "bottleneck_chain",
+          "cases": results, **summary["bottleneck_chain"]})
+    summary["bottleneck_chain_bwd"] = chain_bwd_checks(
+        port, records["bottleneck_chain"], path)
+    summary["sgd_chain"] = sgd_checks(port, records["sgd_chain"], path)
+    return summary
+
+
+def res101_fpn_train_path(port, device, frames):
+    """ResNet-101-FPN training at bs 2 on full 1024x2048 frames, as the
+    benchmark's ``res101_fpn-train-bs2`` runs it (``res101_fpn`` preset,
+    bf16 compute): launches per step (K1 5, K2 4 forward and 4 backward,
+    K4 4 forward and 3 backward, the optimizer 1), the fixed batch's loss
+    falling, a profiler pass, then :func:`fpn_kernel_checks` on the first
+    step's calls.  ``frames`` (the 512x1024 canvases) go unused: the
+    path draws its own at its canvas."""
+    _, cfg16 = port.train_cfgs("res101_fpn", FPN_BS, canvas=FPN_CANVAS)
+    require(cfg16.model.backbone == "resnet101_fpn"
+            and cfg16.model.resnet_fixed_blocks == 1,
+            "the res101_fpn preset is not ResNet-101-FPN with layer1 frozen")
+    fpn_frames = make_frames(cfg16, FPN_FRAMES, seed=5)
+    want = {"nms": 5, "roi_align": 4, "roi_align_bwd": 4, "vgg_stem": 0,
+            "bottleneck_chain": 4, "bottleneck_chain_bwd": 3, "sgd_chain": 1}
+    model = port.train_model(cfg16, device)
+    launches, records = port.train_run(
+        cfg16, model, port.train_batches(fpn_frames, FPN_BS, device),
+        "res101_fpn_train_bs2", FPN_TRAIN_WARMUP, FPN_TRAIN_STEPS, want,
+        record=True)
+    del model
+    summary = fpn_kernel_checks(port, records, "res101_fpn_train")
+    return summary, {"res101_fpn_train_bs2": launches}
 
 
 def scda_kernel_checks(port, records, cfg, tag):
@@ -3948,6 +4094,7 @@ def main() -> int:
     paths = (("vgg16", vgg16_path), ("res101_ms", res101_ms_path),
              ("vgg16_train", vgg16_train_path),
              ("res101_ms_train", res101_ms_train_path),
+             ("res101_fpn_train", res101_fpn_train_path),
              ("vgg16_scda", vgg16_scda_path),
              ("vgg16_surface", vgg16_surface_path),
              ("bench_batches", bench_batches_path),

@@ -38,6 +38,7 @@ from scda_tpu_torch.models.discriminator import (
     PatchDiscriminator, init_discriminator_weights,
 )
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN, pool_rois
+from scda_tpu_torch.models.fpn import fpn_depth
 from scda_tpu_torch.models.rpn import propose
 from scda_tpu_torch.train.state import PlainSgd, TrainState
 from scda_tpu_torch.train.steps import (
@@ -295,6 +296,9 @@ def make_scda_train_step(model: FasterRCNN, d_model: PatchDiscriminator,
     if cfg.adapt.d_update not in ("joint", "alternating"):
         raise ValueError(f"adapt.d_update: {cfg.adapt.d_update!r} "
                          "(want 'joint' or 'alternating')")
+    if fpn_depth(cfg.model.backbone):
+        raise ValueError(f"SCDA adapts single-level detectors; "
+                         f"{cfg.model.backbone} has a feature pyramid")
     forward = (scda_forward if cfg.adapt.d_update == "joint"
                else scda_forward_alternating)
     seed = cfg.train.seed

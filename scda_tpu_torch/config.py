@@ -84,6 +84,7 @@ class ModelConfig:
     """Detector architecture (ref: lib/model/faster_rcnn/faster_rcnn.py:~20)."""
 
     backbone: str = "vgg16"          # vgg16 | resnet50 | resnet101 | resnet152
+                                     # | resnet50/101/152_fpn (the port's FPN)
     num_classes: int = 9             # cityscapes: 8 fg + background
     feat_stride: int = 16
     rpn_channels: int = 512
@@ -421,11 +422,40 @@ def res152_config() -> Config:
     )
 
 
+def res101_fpn_config() -> Config:
+    """ResNet-101-FPN Faster R-CNN, the port's own preset (the JAX package
+    has no FPN): Detectron's ``e2e_faster_rcnn_R-101-FPN_1x.yaml`` at one
+    GPU's share of its 8 x 2 images (2 images a step, the learning rate
+    scaled linearly from 0.02 to 0.0025, one decay at step 60000 where
+    Detectron decays at 60000 and 80000) on Cityscapes' full 1024x2048
+    frame.  The pyramid's widths
+    and level rules are :mod:`scda_tpu_torch.models.fpn`'s constants;
+    ``proposal.pre/post_nms_top_n`` count per level and ``post_nms_top_n``
+    is also the collect's count; each level's anchors take its stride as
+    their base size."""
+    return Config(
+        model=ModelConfig(backbone="resnet101_fpn", rpn_channels=256),
+        train=TrainConfig(
+            learning_rate=0.0025, weight_decay=1e-4, double_bias=True,
+            bias_decay=False, batch_size=2, lr_decay_step=60, max_epochs=90,
+            proposal=ProposalConfig(pre_nms_top_n=2000, post_nms_top_n=2000,
+                                    nms_thresh=0.7, min_size=0.0),
+            roi_target=ROITargetConfig(batch_size=512)),
+        test=TestConfig(
+            proposal=ProposalConfig(pre_nms_top_n=1000, post_nms_top_n=1000,
+                                    nms_thresh=0.7, min_size=0.0),
+            nms_thresh=0.5),
+        data=DataConfig(scale=1024, max_size=2048, image_size=(1024, 2048)),
+        anchors=AnchorConfig(scales=(8.0,)),
+    )
+
+
 PRESETS = {
     "vgg16": vgg16_config,
     "res101": res101_config,
     "res50": res50_config,
     "res152": res152_config,
+    "res101_fpn": res101_fpn_config,
 }
 
 

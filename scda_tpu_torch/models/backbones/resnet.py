@@ -136,30 +136,44 @@ class ResNetStage(nn.Sequential):
 
 
 class ResNetBackbone(nn.Sequential):
-    """conv1 .. layer3: (B, 3, H, W) -> (B, 1024, H/16, W/16)."""
+    """conv1 .. layer3: (B, 3, H, W) -> (B, 1024, H/16, W/16); with
+    ``layer4`` (the FPN trunk) layer4 follows as ``RCNN_base.7``, and
+    :meth:`levels` gives C2 .. C5."""
 
-    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.bfloat16,
+                 layer4: bool = False):
         blocks = RESNET_DEPTHS[depth]
+        stages = [ResNetStage(64, 64, blocks[0], 1, dtype),
+                  ResNetStage(256, 128, blocks[1], 2, dtype),
+                  ResNetStage(512, 256, blocks[2], 2, dtype)]
+        if layer4:
+            stages.append(ResNetStage(1024, 512, blocks[3], 2, dtype))
         super().__init__(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
             FrozenBatchNorm2d(64), nn.ReLU(),
-            nn.MaxPool2d(3, stride=2, padding=1),
-            ResNetStage(64, 64, blocks[0], 1, dtype),
-            ResNetStage(256, 128, blocks[1], 2, dtype),
-            ResNetStage(512, 256, blocks[2], 2, dtype),
-        )
+            nn.MaxPool2d(3, stride=2, padding=1), *stages)
         self.dtype = dtype
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt).contiguous(memory_format=torch.channels_last)
+        x = F.conv2d(x, self[0].weight.to(dt), stride=2, padding=3)
+        return F.max_pool2d(F.relu(self[1](x)), 3, 2, padding=1)
 
     def forward(self, x: torch.Tensor, return_pyramid: bool = False):
         """With ``return_pyramid``, (layer2's stride-8 map (512 channels),
         layer3's stride-16 map)."""
-        dt = self.dtype
-        x = x.to(dt).contiguous(memory_format=torch.channels_last)
-        x = F.conv2d(x, self[0].weight.to(dt), stride=2, padding=3)
-        x = F.max_pool2d(F.relu(self[1](x)), 3, 2, padding=1)
-        f8 = self[5](self[4](x))
+        f8 = self[5](self[4](self._stem(x)))
         x = self[6](f8)
         return (f8, x) if return_pyramid else x
+
+    def levels(self, x: torch.Tensor):
+        """C2 .. C5: layer1 .. layer4's maps (256, 512, 1024, 2048 channels
+        at strides 4 .. 32), NCHW in ``channels_last``."""
+        out = [self[4](self._stem(x))]
+        for stage in list(self)[5:]:
+            out.append(stage(out[-1]))
+        return out
 
 
 class ResNetC4Head(nn.Sequential):

@@ -1,7 +1,11 @@
 """Detection pipeline (port of ``scda_tpu/models/detector.py``): the
 training forward with its four losses, and inference with its
 postprocess, plus ``make_anchors`` and the multiscale pooling dispatch
-``_pool_ms``.
+``_pool_ms``.  An FPN model (:mod:`scda_tpu_torch.models.fpn`) takes the
+same entries: its RPN runs on every pyramid level, each level's
+proposals are one call of this module's ``propose`` (so that a caller
+who wraps the name sees every call, in level order), and the collect
+keeps the best of them.
 
 Every size is fixed by the config and invalid slots are masked, as in
 the JAX package, so the whole forward stays on the device with no host
@@ -20,8 +24,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from scda_tpu_torch.config import Config
+from scda_tpu_torch.config import Config, ProposalConfig
 from scda_tpu_torch.core import boxes as box_ops
+from scda_tpu_torch.models import fpn
 from scda_tpu_torch.models.faster_rcnn import (
     FasterRCNN, pool_rois, pool_rois_multiscale,
 )
@@ -64,6 +69,85 @@ def global_sum(t: torch.Tensor, world) -> torch.Tensor:
 
 def world_size(world) -> int:
     return 1 if world is None else world.size
+
+
+def _fpn_pyramid(model: FasterRCNN, image: torch.Tensor):
+    """An FPN model's P2 .. P6 (NHWC) of an image batch (B, H, W, 3)."""
+    with span("backbone"):
+        trunk = model.RCNN_base.levels(image.permute(0, 3, 1, 2))
+    with span("fpn"):
+        return model.RCNN_fpn(trunk)
+
+
+def _fpn_rpn(model: FasterRCNN, pyramid, im_info: torch.Tensor, cfg: Config,
+             pc: ProposalConfig):
+    """The shared RPN head on P2 .. P6, one ``propose`` call a level (at
+    ``pc``'s counts), then the collect of ``pc.post_nms_top_n`` an image:
+    (each level's (logits, deltas, anchors), the collected proposals)."""
+    outs = []
+    with span("rpn"):
+        for level, feat in zip(fpn.RPN_LEVELS, pyramid):
+            with span("rpn.level", level=level):
+                cls, bbox = model.rpn_out(feat)
+                outs.append((cls, bbox, fpn.level_anchors(
+                    cfg, level, (feat.shape[1], feat.shape[2]), feat.device)))
+    level_props = [propose(cls, bbox, anchors, im_info, pc)
+                   for cls, bbox, anchors in outs]
+    with span("propose"), span("propose.collect"):
+        props = fpn.collect(level_props, pc.post_nms_top_n)
+    return outs, props
+
+
+class _Proposed(NamedTuple):
+    """What both entries take from the backbone and the RPN."""
+
+    maps: tuple                 # what :func:`_pool` reads
+    feat: torch.Tensor          # TrainForward.base_feat (an FPN's P2)
+    rpn_cls: torch.Tensor       # the RPN's logits over every anchor
+    rpn_bbox: torch.Tensor      # and its deltas
+    anchors: torch.Tensor       # (A, 4), every level laid end to end
+    props: Proposals
+
+
+def _proposed(model: FasterRCNN, image: torch.Tensor, im_info: torch.Tensor,
+              cfg: Config, pc: ProposalConfig) -> _Proposed:
+    """Backbone, RPN and proposals at ``pc``'s counts.  An FPN model runs
+    the RPN on every level and collects (:func:`_fpn_rpn`); the targets
+    and losses see its levels' anchors laid end to end."""
+    mc = cfg.model
+    if fpn.fpn_depth(mc.backbone) is not None:
+        pyramid = _fpn_pyramid(model, image)
+        outs, props = _fpn_rpn(model, pyramid, im_info, cfg, pc)
+        b = image.shape[0]
+        return _Proposed(
+            tuple(pyramid), pyramid[0],
+            torch.cat([c.reshape(b, -1, 2) for c, _, _ in outs], 1),
+            torch.cat([d.reshape(b, -1, 4) for _, d, _ in outs], 1),
+            torch.cat([a for _, _, a in outs]), props)
+    with span("backbone"):
+        if mc.multiscale_roi:
+            feat_fine, feat = model.features_pyramid(image)
+        else:
+            feat_fine, feat = None, model.features(image)
+    with span("rpn"):
+        rpn_cls, rpn_bbox = model.rpn_out(feat)
+        anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]),
+                               feat.device)
+    props = propose(rpn_cls, rpn_bbox, anchors, im_info, pc)
+    return _Proposed((feat_fine, feat), feat, rpn_cls, rpn_bbox, anchors,
+                     props)
+
+
+def _pool(model: FasterRCNN, maps: tuple, rois: torch.Tensor,
+          mc) -> torch.Tensor:
+    """RoI pooling from :func:`_proposed`'s ``maps``: an FPN's levels,
+    both multiscale levels, or the one stride-16 map."""
+    if fpn.fpn_depth(mc.backbone) is not None:
+        return fpn.pool_levels(maps, rois, mc)
+    feat_fine, feat = maps
+    if mc.multiscale_roi:
+        return _pool_ms(model, feat_fine, feat, rois, mc)
+    return pool_rois(feat, rois, None, mc)
 
 
 class StepGenerators(NamedTuple):
@@ -143,16 +227,9 @@ def forward_train(
     ``rngs`` are expected to be this rank's row shards."""
     mc = cfg.model
     draws = draws or {}
-    with span("backbone"):
-        if mc.multiscale_roi:
-            feat_fine, feat = model.features_pyramid(image)
-        else:
-            feat_fine, feat = None, model.features(image)
-    with span("rpn"):
-        rpn_cls, rpn_bbox = model.rpn_out(feat)
-        anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]),
-                               feat.device)
-    props = propose(rpn_cls, rpn_bbox, anchors, im_info, cfg.train.proposal)
+    p = _proposed(model, image, im_info, cfg, cfg.train.proposal)
+    rpn_cls, rpn_bbox, anchors, props = (p.rpn_cls, p.rpn_bbox, p.anchors,
+                                         p.props)
 
     with span("targets"), span("targets.anchor"):
         a_tgts = anchor_targets(anchors, gt_boxes, num_boxes, im_info,
@@ -168,10 +245,7 @@ def forward_train(
                                    draws=draws.get("roi"))
     bs, s = samples.labels.shape
     with span("roi"):
-        if mc.multiscale_roi:
-            pooled = _pool_ms(model, feat_fine, feat, samples.rois, mc)
-        else:
-            pooled = pool_rois(feat, samples.rois, None, mc)
+        pooled = _pool(model, p.maps, samples.rois, mc)
     with span("head"):
         cls_logits, bbox_deltas = model.roi_head(pooled, train=True,
                                                  generator=rngs.dropout)
@@ -186,7 +260,7 @@ def forward_train(
         "rcnn_cls": rcnn_cls_loss, "rcnn_box": rcnn_box_loss,
         "fg_cnt": fg_cnt, "bg_cnt": bs * s - fg_cnt,
     }
-    return TrainForward(total, metrics, props, feat)
+    return TrainForward(total, metrics, props, p.feat)
 
 
 class Detections(NamedTuple):
@@ -274,21 +348,9 @@ def forward_inference(model: FasterRCNN, image: torch.Tensor,
     """
     mc = cfg.model
     with span("serve", req=next(_requests)):
-        with span("backbone"):
-            if mc.multiscale_roi:
-                feat_fine, feat = model.features_pyramid(image)
-            else:
-                feat_fine, feat = None, model.features(image)
-        with span("rpn"):
-            rpn_cls, rpn_bbox = model.rpn_out(feat)
-            anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]),
-                                   feat.device)
-        props = propose(rpn_cls, rpn_bbox, anchors, im_info, cfg.test.proposal)
+        p = _proposed(model, image, im_info, cfg, cfg.test.proposal)
         with span("roi"):
-            if mc.multiscale_roi:
-                pooled = _pool_ms(model, feat_fine, feat, props.boxes, mc)
-            else:
-                pooled = pool_rois(feat, props.boxes, None, mc)
+            pooled = _pool(model, p.maps, p.props.boxes, mc)
         with span("head"):
             cls_logits, bbox_deltas = model.roi_head(pooled, train=False)
-        return postprocess(props, cls_logits, bbox_deltas, im_info, cfg)
+        return postprocess(p.props, cls_logits, bbox_deltas, im_info, cfg)

@@ -10,9 +10,11 @@ The public methods keep the JAX layouts (NHWC images and features);
 inside, modules run NCHW in ``torch.channels_last``, whose permuted view
 is the NHWC tensor without a copy.
 
-The ``vgg16``, ``tiny`` and ``resnet50/101/152`` backbones; the four
-pooling modes (``align``, ``align_legacy``, ``pool``, ``crop``) on grouped
-or flat rois; multiscale RoI-Align (``multiscale_roi``) with the lateral
+The ``vgg16``, ``tiny`` and ``resnet50/101/152`` backbones, and the
+``resnet50/101/152_fpn`` feature pyramids (:mod:`scda_tpu_torch.models.
+fpn`: ``RCNN_fpn`` beside those five, ``RCNN_top`` its two-layer MLP
+head); the four pooling modes (``align``, ``align_legacy``, ``pool``,
+``crop``) on grouped or flat rois; multiscale RoI-Align (``multiscale_roi``) with the lateral
 projection before or after pooling (``ms_proj_after_pool``).
 """
 
@@ -30,6 +32,9 @@ from scda_tpu_torch.models.backbones.resnet import (
 )
 from scda_tpu_torch.models.backbones.tiny import TinyBackbone, TinyHead
 from scda_tpu_torch.models.backbones.vgg import VGG16Backbone, VGG16Head
+from scda_tpu_torch.models.fpn import (
+    FPN, FPN_DIM, MLP_HEAD_DIM, TRUNK_CHANNELS, MLPHead, fpn_depth,
+)
 from scda_tpu_torch.models.rpn import RPNHead
 from scda_tpu_torch.ops.roi_ops import (
     contract_axis_weights, roi_align, roi_align_axis_weights,
@@ -44,8 +49,13 @@ _BACKBONES = ("vgg16", "tiny", "resnet50", "resnet101", "resnet152")
 def _check_config(cfg: ModelConfig) -> None:
     if cfg.pooling_mode not in _POOLING_MODES:
         raise ValueError(f"unknown pooling_mode {cfg.pooling_mode!r}")
-    if cfg.backbone not in _BACKBONES:
+    if cfg.backbone not in _BACKBONES and fpn_depth(cfg.backbone) is None:
         raise ValueError(f"unknown backbone {cfg.backbone!r}")
+    if fpn_depth(cfg.backbone) and (cfg.pooling_mode != "align"
+                                    or cfg.multiscale_roi):
+        raise ValueError(f"{cfg.backbone} pools with RoI-Align from its own "
+                         f"levels: pooling_mode must be 'align' and "
+                         f"multiscale_roi false")
 
 
 class FasterRCNN(nn.Module):
@@ -58,7 +68,13 @@ class FasterRCNN(nn.Module):
         self.dtype = dt
         self.cfg = cfg
         p = cfg.pooling_size
-        if cfg.backbone == "vgg16":
+        if fpn_depth(cfg.backbone):
+            feat_ch = FPN_DIM
+            self.RCNN_base = ResNetBackbone(fpn_depth(cfg.backbone), dtype=dt,
+                                            layer4=True)
+            self.RCNN_fpn = FPN(TRUNK_CHANNELS, FPN_DIM, dtype=dt)
+            self.RCNN_top = MLPHead(FPN_DIM * p * p, MLP_HEAD_DIM, dtype=dt)
+        elif cfg.backbone == "vgg16":
             feat_ch = f8_ch = 512
             self.RCNN_base = VGG16Backbone(dtype=dt)
             self.RCNN_top = VGG16Head(feat_ch * p * p, dtype=dt)

@@ -23,11 +23,12 @@ inputs, shown where the profiler records shapes.  :func:`span_times` and
 | ``scda.train_step`` (``step``) | ``train.steps.make_train_step``'s step | the supervised step |
 | ``scda.scda_step`` (``step``) | ``adapt.scda.make_scda_train_step``'s step | the SCDA step |
 | ``scda.serve`` (``req``) | ``models.detector.forward_inference`` | one served batch |
-| ``scda.backbone`` | ``features`` / ``features_pyramid`` of the source or served image | K3, cuDNN, K4 |
-| ``scda.rpn`` | ``rpn_out`` and ``make_anchors`` | the RPN head |
-| ``scda.propose`` | ``models.rpn.propose`` | K1, sort, top-k |
+| ``scda.backbone`` | ``features`` / ``features_pyramid`` of the source or served image; an FPN model's trunk (C2 .. C5) | K3, cuDNN, K4 |
+| ``scda.fpn`` | an FPN model's pyramid (``models.fpn.FPN``) | laterals, top-down adds, output convs, P6 |
+| ``scda.rpn`` > ``.level`` (``level``) | ``rpn_out`` and ``make_anchors``; an FPN model's shared head, one ``.level`` a pyramid level | the RPN head |
+| ``scda.propose`` > ``.collect`` | ``models.rpn.propose`` (one a level for an FPN model); an FPN model's ``models.fpn.collect`` | K1, sort, top-k |
 | ``scda.targets`` > ``.anchor``, ``.roi`` | ``anchor_targets``; ``proposal_targets`` | samplers, target encoding |
-| ``scda.roi`` | ``pool_rois`` / ``_pool_ms`` of the sampled rois or proposals | K2 |
+| ``scda.roi`` > ``.level`` (``level``, ``rois``) | ``pool_rois`` / ``_pool_ms`` of the sampled rois or proposals; ``models.fpn.pool_levels``, one ``.level`` a pyramid level with the rois it assigns there | K2 |
 | ``scda.head`` | ``roi_head`` and the losses | fc6/fc7 or layer4, losses |
 | ``scda.postprocess`` | ``models.detector.postprocess`` | decode, per-class K1, top-k |
 | ``scda.adapt`` > ``.target``, ``.mine``, ``.patches``, ``.disc`` | ``adapt.scda``: the target tower, mining, region patches, discriminator and BCE | the SCDA layer's forward |

@@ -13,8 +13,9 @@ program span (``scda_tpu_torch/utils/profile.py``): each span's device ms
 and blocking host calls a unit, the per-layer numbers the spans give
 (the SCDA layer's share of the unit's device time, the optimizer's and
 the targets' ms, blocking calls an image, the kernel library's load), the
-idle gaps between kernels by the innermost span the host was in, the
-K4 spans against the harness's ``bench.chain`` ranges, which autograd
+idle gaps between kernels by the innermost span the host was in, an FPN
+cell's RPN and RoI-Align spans by pyramid level, the K4 spans against
+the harness's ``bench.chain`` ranges, which autograd
 nodes ran inside ``scda.adapt.bwd``, and the device work each
 ``scda.optimizer`` span launched: its kernels a step, and the share of
 steps that ran ``ops.kernels.sgd_kernel``'s update kernel (100 on the
@@ -178,6 +179,33 @@ def layer_numbers(span_ms: dict, span_syncs: dict, device_ms: float,
     }
 
 
+def fpn_levels(events, units: int) -> dict:
+    """The FPN path's per-level spans, ``scda.rpn.level`` and
+    ``scda.roi.level``: the device ms of the work launched inside each a
+    unit, by pyramid level (the span's ``level`` id where the trace keeps
+    ids, else its place among the unit's spans of that name), with the
+    rois pooled at each level a unit where the ``rois`` id is kept."""
+    from scda_tpu_torch.models import fpn
+
+    work = [e for e in events if not e.name.startswith(profile.SPAN_PREFIX)]
+    out = {}
+    for name, levels in (("scda.rpn.level", fpn.RPN_LEVELS),
+                         ("scda.roi.level", fpn.ROI_LEVELS)):
+        found = sorted((e for e in events if e.name == name
+                        and not profile._is_device(e)), key=_interval)
+        by = {}
+        for i, e in enumerate(found):
+            ids = getattr(e, "kwinputs", None) or {}
+            row = by.setdefault(str(ids.get("level", levels[i % len(levels)])),
+                                {"ms": 0.0})
+            row["ms"] += profile.span_times(work + [e]).get(name, 0.0) / units
+            if ids.get("rois") is not None:
+                row["rois"] = row.get("rois", 0.0) + ids["rois"] / units
+        if by:
+            out[name] = by
+    return out
+
+
 FUSED_KERNEL = "sgd_update_kernel"
 
 
@@ -256,6 +284,7 @@ def report(workload: str, seed: int, window: float, device,
                        ranges.get("bench.chain_bwd")]},
         "adapt_bwd_nodes": adapt_bwd_nodes(events),
         "optimizer": optimizer_kernels(events),
+        "fpn_levels": fpn_levels(events, units),
         "idle_gaps_bench": t["idle_gaps"],
         "idle_gaps_by_span": gaps_by_span(events, unit_thread),
     }

@@ -263,6 +263,7 @@ def test_bottleneck_chain_kernel_matches_twin(cuda, dtype, b, h, w, f, n):
     (1, 32, 64, 256, 22, 0.1),      # the ResNet-101 stages at 512x1024
     (8, 128, 256, 64, 2, 0.3), (8, 64, 128, 128, 3, 0.3),
     (8, 32, 64, 256, 22, 0.1),      # ... served at bs 8 (res101_bs8)
+    (2, 32, 64, 512, 2, 0.3),       # layer4 of ResNet-101-FPN, 1024x2048, bs 2
     (1, 31, 33, 256, 2, 0.3),       # M = 1023: a cut tile under a 128-wide expand
     (1, 75, 101, 128, 1, 1.0),      # M = 7575: a cut tile, 128-wide throughout
 ])
@@ -557,10 +558,12 @@ def test_bottleneck_chain_bwd_kernel_matches_twin(cuda, dtype, b, h, w, f,
 @pytest.mark.parametrize("b,h,w,f,n,damp", [
     (1, 64, 128, 128, 3, 0.3), (1, 32, 64, 256, 22, 0.1),
     (8, 64, 128, 128, 3, 0.3), (8, 32, 64, 256, 22, 0.1),
+    (2, 32, 64, 512, 2, 0.3),
 ])
 def test_bottleneck_chain_bwd_kernel_at_the_path_shapes(cuda, b, h, w, f, n,
                                                         damp):
-    """layer2 and layer3 of ResNet-101 at 512x1024, bs 1 and 8, bf16
+    """layer2 and layer3 of ResNet-101 at 512x1024, bs 1 and 8, and
+    layer4 of ResNet-101-FPN at 1024x2048, bs 2, bf16
     forward, the gradients the model asks for (x, w1, w2, w3): within
     1e-4 of each norm of the twin at the kernel's own remat, the remat
     within the remat gate, and two launches bit-equal."""

@@ -338,6 +338,85 @@ def test_the_harness_call_sites_are_still_looked_up_by_name(monkeypatch):
     assert seen.count("scda_tpu_torch.models.backbones.resnet.bottleneck_chain") == 1
 
 
+def fpn_path(name: str):
+    """``make_path`` for a ResNet-50-FPN at 64x128, f32: one train step or
+    served batch of two images."""
+    cfg = C.get_config("res101_fpn")
+    for key, value in (
+            ("model.backbone", "resnet50_fpn"),
+            ("model.compute_dtype", "float32"),
+            ("data.image_size", (64, 128)), ("data.max_gt_boxes", 8),
+            ("train.proposal.pre_nms_top_n", 64),
+            ("train.proposal.post_nms_top_n", 32),
+            ("train.roi_target.batch_size", 16),
+            ("train.rpn_target.batch_size", 32),
+            ("test.proposal.pre_nms_top_n", 32),
+            ("test.proposal.post_nms_top_n", 16),
+            ("test.max_dets_per_class", 4), ("test.max_per_image", 8)):
+        cfg = C.replace_path(cfg, key, value)
+    torch.manual_seed(0)
+    model = build_model(cfg.model, cfg.anchors.num_anchors)
+    rng = np.random.RandomState(2)
+    image = torch.from_numpy(rng.randn(2, 64, 128, 3).astype(np.float32))
+    info = torch.tensor([[64.0, 128.0, 1.0], [48.0, 100.0, 1.0]])
+    gt = torch.zeros(2, 8, 5)
+    gt[:, 0] = torch.tensor([4.0, 6.0, 40.0, 50.0, 1.0])
+    gt[:, 1] = torch.tensor([50.0, 2.0, 90.0, 30.0, 2.0])
+    num = torch.tensor([2, 2])
+    if name == "serve":
+        return (lambda: det.forward_inference(model, image, info, cfg)), model
+    state = create_train_state(cfg, model)
+    step = make_train_step(model, cfg)
+    return (lambda: step(state, image, info, gt, num)[1]), state
+
+
+@pytest.mark.parametrize("name", ["train", "serve"])
+def test_fpn_spans_open_only_under_a_profiler_and_carry_their_ids(
+        name, monkeypatch):
+    """The FPN path's spans: none opens without a profiler; under one,
+    ``scda.fpn``, one
+    ``scda.rpn.level`` a pyramid level inside ``scda.rpn``, one
+    ``scda.propose`` a level's proposal call and one around the collect
+    that holds ``scda.propose.collect``, and one ``scda.roi.level`` a
+    pooled level inside ``scda.roi``, whose ``rois`` ids count every
+    roi once."""
+    from scda_tpu_torch.models import fpn
+
+    run, state = fpn_path(name)
+    fast = torch._C._profiler._RecordFunctionFast
+    opened = []
+
+    def fast_counting(*args, **kwargs):
+        opened.append(args[0])
+        return fast(*args, **kwargs)
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast",
+                        fast_counting)
+    run()
+    assert opened == []
+    _, events = traced(run)
+    found = spans(events)
+    by = lambda n: [e for e in found if e.name == n]
+    (fpn_span,), (rpn,), (roi,) = by("scda.fpn"), by("scda.rpn"), by("scda.roi")
+    rpn_levels = by("scda.rpn.level")
+    assert [e.kwinputs["level"] for e in rpn_levels] == list(fpn.RPN_LEVELS)
+    assert all(_inside(e, rpn) for e in rpn_levels)
+    proposes, (collect,) = by("scda.propose"), by("scda.propose.collect")
+    assert len(proposes) == len(fpn.RPN_LEVELS) + 1
+    assert sum(_inside(collect, p) for p in proposes) == 1
+    assert not any(_inside(p, rpn) for p in proposes)
+    roi_levels = by("scda.roi.level")
+    assert [e.kwinputs["level"] for e in roi_levels] == list(fpn.ROI_LEVELS)
+    assert all(_inside(e, roi) for e in roi_levels)
+    assert sum(e.kwinputs["rois"] for e in roi_levels) == 2 * 16
+    key = "req" if name == "serve" else "step"
+    ids = {e.kwinputs.get(key) for e in found}
+    assert len(ids) == 1 and None not in ids
+    if key == "step":
+        assert ids == {state.step - 1}
+    assert fpn_span.kwinputs[key] == ids.pop()
+
+
 # ---- reading a pass's events --------------------------------------------------
 
 CPU = SimpleNamespace(name="CPU")

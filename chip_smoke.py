@@ -2006,12 +2006,18 @@ def res101_fpn_train_path(port, device, frames):
     want = {"nms": 5, "roi_align": 4, "roi_align_bwd": 4, "vgg_stem": 0,
             "bottleneck_chain": 4, "bottleneck_chain_bwd": 3, "sgd_chain": 1}
     model = port.train_model(cfg16, device)
+    paths = dict(port.bk.bottleneck_chain_bwd.wgrad_paths)
     launches, records = port.train_run(
         cfg16, model, port.train_batches(fpn_frames, FPN_BS, device),
         "res101_fpn_train_bs2", FPN_TRAIN_WARMUP, FPN_TRAIN_STEPS, want,
         record=True)
+    paths = {k: v - paths[k]
+             for k, v in port.bk.bottleneck_chain_bwd.wgrad_paths.items()}
     del model
     summary = fpn_kernel_checks(port, records, "res101_fpn_train")
+    summary["k4_bwd_wgrad_paths"] = paths
+    emit({"phase": "train", "path": "res101_fpn_train",
+          "k4_bwd_wgrad_paths": paths})
     return summary, {"res101_fpn_train_bs2": launches}
 
 

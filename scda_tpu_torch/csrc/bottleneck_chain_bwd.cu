@@ -83,20 +83,42 @@
 //     1x1 weight gradients cost 16 (45 against 29 us), 8.2 against 7.3
 //     ms at layer3 in all.
 //   - Weight gradients reduce over the pixels, and both operands are
-//     stored along the channels, while TF32 wgmma takes only K-major
-//     (here pixel-major) tiles.  A slice of 32 pixels x 64 channels of
-//     each operand is copied as it lies into a staging buffer; the split
-//     pass, which goes through registers anyway, reads four pixels of
-//     one channel (conflict-free along the channels) and writes them
-//     transposed as one 16-byte chunk of the swizzled hi tile and of the
-//     lo tile, while the previous slice's wgmmas run.  One warpgroup a
-//     64 x 64 output tile, two staging buffers and two sets of tiles (96
-//     KB, two blocks an SM); the pixel axis is cut into splits (the
-//     wrapper's wgrad_chunk), added in split order by the last block as
-//     above.  A first version on mma.sync.m16n8k8, fragments read from
-//     the staging tile and split in registers, took 118 us for layer3's
-//     dW2 and 38 us for its dW1 / dW3 at bs 1 against 99 and 29 us for
-//     this one (kernel_probe k4bwd, H100 80GB HBM3 at 700 W).
+//     stored along the channels, while TF32 wgmma reads a shared-memory
+//     operand only K-major (here pixel-major).  What bounds them on
+//     this card: at 4-byte operands the tensor cores' appetite for shared
+//     memory.  An m64n128k8 wgmma with both operands in shared memory reads
+//     6 KB for 64 cycles of work, 96 of the SM's 128 bytes a cycle, so
+//     every other pass through shared memory (staging copies, the split
+//     and transpose) competes with the products; and for the 3x3, whose
+//     nine taps each read both operands again, L2's bandwidth.  The design:
+//     128 x 128 output tiles, which halve the L2 reads of 64 x 64 ones;
+//     one block an SM of three warpgroups.  Warpgroup 0 produces: it
+//     copies each 32-pixel slice of both operands as they lie into a ring
+//     of three stages (cp.async, two slices ahead, the 3x3's taps
+//     zero-filled outside the image), and splits and transposes bm alone
+//     into swizzled K-major hi and lo tiles (a thread owns one channel and
+//     loads its 32 values before its first store).  Warpgroups 1 and 2
+//     consume, 64 rows of A each: they take A from the stage straight into
+//     registers a k-step at a time (the TF32 A fragment; rows padded so
+//     that its loads hit 32 banks), split it there while the previous
+//     k-step's wgmmas run, and multiply it by bm's tiles, so that their
+//     wgmmas read only bm from shared memory and never wait on a split
+//     pass.  mbarriers hand each stage from producer to consumers and
+//     back.  The pixel axis is cut into splits only to balance waves (the
+//     wrapper's wgrad_plan, from kernel_probe k4bwd-phases), added in
+//     split order by the last block as above.  Measured (k4bwd-phases, a
+//     launch, H100 80GB HBM3 at 700 W), the 64 x 64 kernel this replaces
+//     (one warpgroup a block copying, splitting and multiplying) against
+//     this one: FPN's layer3 at 1024x2048, bs 2, dW3 0.209 -> 0.103 ms and
+//     dW2 0.716 -> 0.291 ms (3-pass TF32 bounds 0.052 and 0.117); its
+//     layer2 0.170 -> 0.119 and 0.742 -> 0.295, layer4 0.161 -> 0.100 and
+//     0.744 -> 0.332; res101-ms at bs 1, layer3 0.0275 -> 0.0235 and
+//     0.0984 -> 0.0500, layer2 0.0359 -> 0.0355 and 0.0857 -> 0.0533.
+//     In the FPN training step's trace the weight gradients take 13.7 ms
+//     a step, against 30.8 for the 64 x 64 kernel.  Tried on the way: a
+//     producer loading global memory straight into registers (no staging)
+//     was latency-bound with one slice in registers (0.194 ms for layer3's
+//     dW3) and spilled with two; one transposing both operands, 0.125 ms.
 //   - No atomics accumulate anything: every output element is written
 //     once by one thread after sums in a fixed order, so two calls on the
 //     same inputs give the same bits.
@@ -108,14 +130,15 @@
 // of 67 TFLOP/s, where the f32 FMA kernel this replaces ran, 12.3-12.7
 // ms), against 13 MB of the stream and its gradient in and out.
 // Measured on an H100 80GB HBM3 at 700 W (utils/kernel_probe.py k4bwd,
-// the gradients the model asks for, launches alone): 1.14 ms at layer2
-// and 7.28 ms at layer3 at bs 1, 44.9 ms at layer3 at bs 8 (tensor-core
-// bounds 0.19, 1.42 and 11.4 ms).  What holds it back (k4bwd-phases,
-// layer3, bs 1): the weight gradients' copies, L2-bound at 64 x 64 tiles
-// (dW2 re-reads its operands 4 x 9 times: 151 MB, 60 us of its 101),
-// and each split product's launch and partial sums (11 us of a reduce
-// 1x1's 15 with every phase compiled out); cvt.rna.tf32 measured no
-// faster than the two integer operations used instead.
+// the gradients the model asks for, launches alone): 1.04 ms at layer2
+// and 6.12 ms at layer3 at bs 1 (1.14 and 7.28 with the 64 x 64
+// weight-gradient kernel), 30.7 ms at layer3 at bs 8 and at FPN's layer3
+// at bs 2 (44.9 and 44.8 with it; tensor-core bounds 0.19, 1.42 and 11.4
+// ms).  What holds the data
+// products back (k4bwd-phases, layer3, bs 1): each split product's launch
+// and partial sums (11 us of a reduce 1x1's 15 with every phase compiled
+// out); cvt.rna.tf32 measured no faster than the two integer operations
+// used instead.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -181,32 +204,63 @@ __device__ __forceinline__ bool last_split(int* counter, int splits) {
   return last;
 }
 
-// acc[i] (each thread's R registers of a tile) = the sum over the splits,
-// in split order, of the partials that every split stored at part[(s R +
-// i) * kThreads + tid], this block's own included (read back, so the sum
-// is the same whichever block adds).  A split's R loads are independent
-// and go out together: a loop over i inside s would wait for L2 once per
-// register.
-template <int R>
+// acc[i] (each of T threads' R registers of a tile) = the sum over the
+// splits, in split order, of the partials that every split stored at
+// part[(s R + i) * T + tid], this block's own included (read back, so the
+// sum is the same whichever block adds).  A split's R loads are
+// independent and go out together: a loop over i inside s would wait for
+// L2 once per register.
+template <int R, int T = kThreads>
 __device__ __forceinline__ void sum_splits(float (&acc)[R],
-                                           const float* part, int splits) {
-  const int tid = threadIdx.x;
+                                           const float* part, int splits,
+                                           int tid) {
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.0f;
   for (int sp = 0; sp < splits; ++sp) {
-    const float* src = part + static_cast<size_t>(sp) * R * kThreads + tid;
+    const float* src = part + static_cast<size_t>(sp) * R * T + tid;
 #pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] += __ldcg(src + i * kThreads);
+    for (int i = 0; i < R; ++i) acc[i] += __ldcg(src + i * T);
   }
 }
-template <int R>
+template <int R, int T = kThreads>
 __device__ __forceinline__ void store_split(const float (&acc)[R],
-                                            float* part, int own) {
-  const int tid = threadIdx.x;
+                                            float* part, int own, int tid) {
 #pragma unroll
   for (int i = 0; i < R; ++i)
-    __stcg(part + (static_cast<size_t>(own) * R + i) * kThreads + tid,
-           acc[i]);
+    __stcg(part + (static_cast<size_t>(own) * R + i) * T + tid, acc[i]);
+}
+
+// mbarriers in shared memory (addresses in the shared window).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// Arrives with release semantics: this thread's earlier writes are seen by
+// the threads that wait on the phase it completes.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// A barrier among `count` threads (whole warps) under id `id` (0 is
+// __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- data products: wgmma in split TF32 ---------------------------------
@@ -317,6 +371,57 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
                                            uint64_t db, int scale_d) {
   if constexpr (BN == 64) wgmma_m64n64k8(d, da, db, scale_d);
   else wgmma_m64n128k8(d, da, db, scale_d);
+}
+
+// d = (scale_d ? d : 0) + A(64 x 8) . B(8 x 128), A from registers (the
+// TF32 fragment: warp w of the warpgroup holds rows 16 w + g and + 8,
+// columns t and t + 4, g = lane / 4, t = lane % 4, in a[0..3] as (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4)), B from shared memory.  The
+// registers of a must keep their values until the wgmma has completed.
+__device__ __forceinline__ void wgmma_m64n128k8_ra(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+// Keeps registers that an asynchronous wgmma reads or writes where they
+// are: the compiler neither reuses them nor moves their other uses across
+// this point.
+__device__ __forceinline__ void hold(const uint32_t (&r)[4]) {
+  asm volatile("" ::"r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void hold(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // One data product: out (M, N) = epilogue(A (M, K) . bt (N, K)^T).  For
@@ -485,9 +590,9 @@ chain_bwd_wgmma_kernel(const Product p) {
   if (p.splits > 1) {
     const int tile = blockIdx.x + gridDim.x * blockIdx.y;
     float* part = p.part + static_cast<size_t>(tile) * p.splits * kR * kThreads;
-    store_split(acc, part, split);
+    store_split(acc, part, split, tid);
     if (!last_split(p.counters + tile, p.splits)) return;
-    sum_splits(acc, part, p.splits);
+    sum_splits(acc, part, p.splits, tid);
   }
 
   // wgmma's D layout: warp w holds rows 16 w + g and 16 w + g + 8 (g =
@@ -528,14 +633,11 @@ chain_bwd_wgmma_kernel(const Product p) {
 // ---- weight gradients: wgmma in split TF32 ------------------------------
 
 constexpr int kWSlice = 32;              // pixels a slice: one 128-byte row
-constexpr int kWStage = 2 * kWSlice * 64 * 4;   // staging of A and B, bytes
-constexpr int kWTiles = 4 * kATile;      // A hi, A lo, B hi, B lo (64 rows)
-constexpr int kWSmemBytes = 2 * kWTiles + 2 * kWStage + 1024;
 
 // out (taps, Ka, Kb) = sum over the pixels m of A[m'] (x) bm[m], where m'
 // = m for taps == 1 and, for taps == 9, m' is pixel m shifted by the tap
-// (zero outside the image).  The pixels are cut into splits of `chunk`;
-// grid (Kb / 64, Ka / 64, splits * taps), partial tiles through `part`.
+// (zero outside the image).  The pixels are cut into splits of `chunk`,
+// partial tiles through `part`.
 struct Wgrad {
   const float* a;
   const float* bm;
@@ -545,140 +647,263 @@ struct Wgrad {
   int M, Ka, Kb, H, W, chunk;
 };
 
-// Both operands are stored along the channels, and TF32 wgmma reads only
-// K-major (here pixel-major) tiles: a slice of 32 pixels x 64 channels of
-// each is copied as it lies into a staging buffer, then split and
-// transposed in one pass through registers into the swizzled K-major hi
-// and lo tiles (a thread reads four pixels of one channel, conflict-free
-// along the channels, and writes them as one 16-byte chunk of hi and of
-// lo), while the previous slice's wgmmas run.  Two staging buffers and
-// two sets of tiles: 96 KB, two blocks an SM.
+constexpr int kGThreads = 3 * kThreads;   // producer + two consumers
+constexpr int kGTile = 128;               // output tile rows and columns
+constexpr int kGOpBytes = kGTile * kRowBytes;   // bm's K-major hi or lo tile
+// A as stored, 32 pixels of 128 channels, each pixel's row padded by 8
+// floats: a fragment's loads (channels g, pixels t) then hit 32 banks.
+constexpr int kGARow = kGTile + 8;
+constexpr int kGAStage = kWSlice * kGARow * 4;
+constexpr int kGBStage = kWSlice * kGTile * 4;  // bm as stored
+constexpr int kGStageBytes = 2 * kGOpBytes + kGAStage + kGBStage;  // 65 KB
+constexpr int kGStages = 3;
+constexpr int kGBarOffset = kGStages * kGStageBytes;
+constexpr int kGSmemBytes = kGBarOffset + 2 * kGStages * 8 + 1024;
+
+// The weight gradient of Wgrad on 128 x 128 output tiles (Ka, Kb
+// multiples of 64; a half tile's missing rows or columns are zero-filled
+// and not stored): grid (Kb / 128, Ka / 128, splits * taps), rounded up.
+// A ring of three stages, each a slice of 32 pixels: A and bm as stored
+// (128 channels a pixel) and bm's swizzled K-major hi and lo tiles.
+// Warpgroup 0 produces: it copies a slice of A (shifted by the tap, zero
+// outside the image) and of bm into a stage two slices ahead, then
+// splits and transposes bm (a thread takes one channel, reads its 32
+// values, conflict-free along the channels, and writes each four pixels
+// as one 16-byte chunk of the hi tile and of the lo tile) and signals the
+// stage full, one arrival a warp.  Warpgroups 1 and 2 consume: each takes
+// its 64 rows of A from the stage into registers a k-step at a time,
+// splits them there while the previous k-step's wgmmas run, multiplies
+// them by bm's tiles (wgmma m64n128k8 with A in registers, the same three
+// passes a k-step as the data products), adds the slice to its sum and
+// signals the stage empty.  So the consumers never wait on a split pass
+// for the tensor cores, and their wgmmas read only bm from shared memory,
+// whose bandwidth the operand reads would otherwise mostly take.
 template <bool kShift>
-__global__ void __launch_bounds__(kThreads)
-chain_bwd_wgrad_kernel(const Wgrad p) {
+__global__ void __launch_bounds__(kGThreads, 1)
+chain_bwd_wgrad_tiled_kernel(const Wgrad p) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
   const uint32_t smem_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  uint8_t* staging = smem + 2 * kWTiles;  // [2][A, B][32 px][64 ch] f32
+  const uint32_t full = smem_addr + kGBarOffset;  // then empty, 8 bytes a stage
+  const uint32_t empty = full + 8 * kGStages;
+  // A and bm as stored in stage s.
+  auto a_raw = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * kGStageBytes + 2 * kGOpBytes);
+  };
+  auto b_raw = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * kGStageBytes + 2 * kGOpBytes +
+                                    kGAStage);
+  };
 
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * 64, k10 = blockIdx.y * 64;
+  const int n0 = blockIdx.x * kGTile, k10 = blockIdx.y * kGTile;
   const int taps = kShift ? 9 : 1;
   const int tap = blockIdx.z % taps, split = blockIdx.z / taps;
   const int splits = gridDim.z / taps;
-  const int dy = kShift ? tap / 3 - 1 : 0, dx = kShift ? tap % 3 - 1 : 0;
   const int mbeg = split * p.chunk;
   const int mend = min(p.M, mbeg + p.chunk);
-  const int Ka = p.Ka, Kb = p.Kb;
-
-  // Copies: thread moves 16-byte chunk c of staging rows r + 8 q, of A
-  // and of bm.
-  const int r = tid / 16, c = tid % 16;
-  int ld_m0 = mbeg, ld_buf = 0;
-  auto load_slice = [&]() {
-    float* as = reinterpret_cast<float*>(staging + ld_buf * kWStage);
-    float* bs = as + kWSlice * 64;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int m = ld_m0 + r + 8 * q;
-      const bool in = m < mend;
-      const bool ok = in && (!kShift || in_image(m, dy, dx, p.H, p.W));
-      const int src = ok ? m + dy * p.W + dx : 0;
-      cp_async16(as + (r + 8 * q) * 64 + 4 * c,
-                 p.a + static_cast<size_t>(src) * Ka + k10 + 4 * c, ok);
-      cp_async16(bs + (r + 8 * q) * 64 + 4 * c,
-                 p.bm + static_cast<size_t>(in ? m : 0) * Kb + n0 + 4 * c, in);
-    }
-    ld_m0 += kWSlice;
-    ld_buf ^= 1;
-  };
-  // Split and transpose: thread takes channel ch = tid % 64 of operand
-  // tid / 64 (A, then B) and the eight 4-pixel groups of the slice; chunk
-  // Q of tile row ch lies at ch * 128 + ((Q ^ (ch & 7)) << 4).
-  const int ch = tid % 64, opnd = tid / 64;
-  auto split_slice = [&](int buf, int set) {
-    const float* src = reinterpret_cast<const float*>(staging + buf * kWStage) +
-                       opnd * kWSlice * 64 + ch;
-    uint8_t* hi = smem + set * kWTiles + opnd * 2 * kATile + ch * kRowBytes;
-#pragma unroll
-    for (int Q = 0; Q < kWSlice / 4; ++Q) {
-      float4 h, l;
-      split_tf32(src[(4 * Q + 0) * 64], h.x, l.x);
-      split_tf32(src[(4 * Q + 1) * 64], h.y, l.y);
-      split_tf32(src[(4 * Q + 2) * 64], h.z, l.z);
-      split_tf32(src[(4 * Q + 3) * 64], h.w, l.w);
-      const int off = (Q ^ (ch & 7)) << 4;
-      *reinterpret_cast<float4*>(hi + off) = h;
-      *reinterpret_cast<float4*>(hi + kATile + off) = l;
-    }
-  };
-
-  float acc[32], tmp[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = tmp[i] = 0.0f;
-
-  // Slice kt: copied two slices ahead, split and transposed while slice
-  // kt - 1 is multiplied, multiplied; a staging buffer is refilled once
-  // its slice is split, a set of tiles once its wgmmas completed.
   const int nk = mend > mbeg ? (mend - mbeg + kWSlice - 1) / kWSlice : 0;
-  if (nk > 0) load_slice();
-  cp_async_commit();
-  if (nk > 1) load_slice();
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  if (nk > 0) split_slice(0, 0);
-  fence_proxy_async();
-  __syncthreads();
-  if (nk > 2) load_slice();  // into buffer 0
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const uint32_t base = smem_addr + (kt & 1) * kWTiles;
-    const uint64_t a_hi = smem_desc(base), a_lo = smem_desc(base + kATile);
-    const uint64_t b_hi = smem_desc(base + 2 * kATile);
-    const uint64_t b_lo = smem_desc(base + 3 * kATile);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kWSlice / 8; ++kk) {
-      wgmma_tile<64>(tmp, a_lo + 2 * kk, b_hi + 2 * kk, kk > 0);
-      wgmma_tile<64>(tmp, a_hi + 2 * kk, b_lo + 2 * kk, 1);
-      wgmma_tile<64>(tmp, a_hi + 2 * kk, b_hi + 2 * kk, 1);
-    }
-    wgmma_commit();
-    if (kt + 1 < nk) {
-      cp_async_wait<1>();  // this thread's copies of slice kt + 1
-      __syncthreads();     // everyone's
-      split_slice((kt + 1) & 1, (kt + 1) & 1);
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += tmp[i];
-    fence_proxy_async();
-    __syncthreads();
-    if (kt + 3 < nk) load_slice();  // into the buffer slice kt + 1 left
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
+  const int Ka = p.Ka, Kb = p.Kb, H = p.H, W = p.W;
 
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(full + 8 * s, kThreads / 32);  // every producer warp
+      mbar_init(empty + 8 * s, 8);             // every consumer warp
+    }
+  }
+  __syncthreads();
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  if (tid < kThreads) {
+    // Copies: thread moves 16-byte chunk c of slice rows r + 4 q, of A
+    // and of bm; channels past Ka or Kb are zero-filled.
+    const int c = tid % 32, r = tid / 32;
+    const bool a_in = k10 + 4 * c < Ka, b_in = n0 + 4 * c < Kb;
+    const int dy = kShift ? tap / 3 - 1 : 0, dx = kShift ? tap % 3 - 1 : 0;
+    // Where pixel ld_m0 + r lies in its image (row py, column px).
+    int py = 0, px = 0;
+    if (kShift) {
+      const int rem = (mbeg + r) % (H * W);
+      py = rem / W;
+      px = rem % W;
+    }
+    int ld_m0 = mbeg;
+    auto load_slice = [&](int s) {
+      float* as = a_raw(s);
+      float* bs = b_raw(s);
+#pragma unroll
+      for (int q = 0; q < kWSlice / 4; ++q) {
+        const int row = r + 4 * q, m = ld_m0 + row;
+        const bool in = m < mend;
+        bool ok = in && a_in;
+        if (kShift) {
+          int y = py, x = px + 4 * q;
+          while (x >= W) {
+            x -= W;
+            ++y;
+          }
+          while (y >= H) y -= H;
+          ok = ok && y + dy >= 0 && y + dy < H && x + dx >= 0 && x + dx < W;
+        }
+        const float* src =
+            ok ? p.a + static_cast<size_t>(m + dy * W + dx) * Ka + k10 + 4 * c
+               : p.a;
+        cp_async16(as + row * kGARow + 4 * c, src, ok);
+        const bool okb = in && b_in;
+        cp_async16(bs + row * kGTile + 4 * c,
+                   okb ? p.bm + static_cast<size_t>(m) * Kb + n0 + 4 * c
+                       : p.bm,
+                   okb);
+      }
+      ld_m0 += kWSlice;
+      if (kShift) {
+        px += kWSlice;
+        while (px >= W) {
+          px -= W;
+          ++py;
+        }
+        while (py >= H) py -= H;
+      }
+    };
+    // Thread tid takes channel tid of bm: chunk Q (pixels 4 Q .. 4 Q + 3)
+    // of tile row tid lies at tid * 128 + ((Q ^ (tid & 7)) << 4).  Every
+    // value is loaded before the first store: the compiler cannot move a
+    // load above a store to shared memory that it may alias, and a chain
+    // of load, split, store a chunk runs at one chunk per load latency.
+    auto split_slice = [&](int s) {
+      const float* src = b_raw(s) + tid;
+      float v[kWSlice];
+#pragma unroll
+      for (int k = 0; k < kWSlice; ++k) v[k] = src[k * kGTile];
+      uint8_t* hi = smem + s * kGStageBytes + tid * kRowBytes;
+#pragma unroll
+      for (int Q = 0; Q < kWSlice / 4; ++Q) {
+        float4 h, l;
+        split_tf32(v[4 * Q + 0], h.x, l.x);
+        split_tf32(v[4 * Q + 1], h.y, l.y);
+        split_tf32(v[4 * Q + 2], h.z, l.z);
+        split_tf32(v[4 * Q + 3], h.w, l.w);
+        const int off = (Q ^ (tid & 7)) << 4;
+        *reinterpret_cast<float4*>(hi + off) = h;
+        *reinterpret_cast<float4*>(hi + kGOpBytes + off) = l;
+      }
+    };
+
+    // Slice kt in stage kt % 3: copied two slices ahead, once the
+    // consumers have emptied the stage (of slice kt - 3); split as soon as
+    // every producer thread's copies of it have landed, the proxy fence
+    // and the warp barrier ordering each thread's stores before its
+    // warp's arrival.
+    if (nk > 0) load_slice(0);
+    cp_async_commit();
+    if (nk > 1) load_slice(1);
+    cp_async_commit();
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kGStages;
+      cp_async_wait<1>();           // this thread's copies of slice kt
+      named_sync(1, kThreads);      // every producer thread's
+      split_slice(s);
+      fence_proxy_async();
+      __syncwarp();
+      if (tid % 32 == 0) mbar_arrive(full + 8 * s);
+      if (kt + 2 < nk) {
+        const int s2 = (kt + 2) % kGStages;
+        if (kt + 2 >= kGStages)
+          mbar_wait(empty + 8 * s2, ((kt + 2) / kGStages - 1) & 1);
+        load_slice(s2);
+      }
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+  } else {
+    const int wg = tid / kThreads - 1;
+    const int g = (tid % 32) / 4, t = tid % 4;
+    // This thread's rows of A's fragment (and + 8); its pixels t, t + 4.
+    const int arow = 64 * wg + 16 * ((tid / 32) % 4) + g;
+    float tmp[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tmp[i] = 0.0f;
+    uint32_t ahi[2][4], alo[2][4];
+    // k-step kk's fragment of A from stage s, split into hi and lo.
+    auto fragment = [&](int s, int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+      const float* a0 = a_raw(s) + (8 * kk + t) * kGARow + arow;
+      const float* a1 = a0 + 4 * kGARow;
+      const float v[4] = {a0[0], a0[8], a1[0], a1[8]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float h, l;
+        split_tf32(v[i], h, l);
+        hi[i] = __float_as_uint(h);
+        lo[i] = __float_as_uint(l);
+      }
+    };
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kGStages;
+      mbar_wait(full + 8 * s, (kt / kGStages) & 1);
+      const uint64_t b_hi = smem_desc(smem_addr + s * kGStageBytes);
+      const uint64_t b_lo = smem_desc(smem_addr + s * kGStageBytes + kGOpBytes);
+      // k-step kk's three passes read fragment set kk % 2; the set is
+      // rewritten for k-step kk + 2 once they have completed.
+#pragma unroll
+      for (int kk = 0; kk < kWSlice / 8; ++kk) {
+        const int j = kk % 2;
+        if (kk >= 2) {
+          wgmma_wait<1>();
+          hold(ahi[j]);
+          hold(alo[j]);
+        }
+        fragment(s, kk, ahi[j], alo[j]);
+        wgmma_fence();
+        wgmma_m64n128k8_ra(tmp, alo[j], b_hi + 2 * kk, kk > 0);
+        wgmma_m64n128k8_ra(tmp, ahi[j], b_lo + 2 * kk, 1);
+        wgmma_m64n128k8_ra(tmp, ahi[j], b_hi + 2 * kk, 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      hold(ahi[0]);
+      hold(alo[0]);
+      hold(ahi[1]);
+      hold(alo[1]);
+      hold(tmp);
+      __syncwarp();
+      if (tid % 32 == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += tmp[i];
+    }
+  }
+
+  const int ct = tid - kThreads;  // the consumers' thread, 0 .. 255
   if (splits > 1) {
     const int tile = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * tap);
-    float* part = p.part + static_cast<size_t>(tile) * splits * 32 * kThreads;
-    store_split(acc, part, split);
+    float* part =
+        p.part + static_cast<size_t>(tile) * splits * 64 * 2 * kThreads;
+    if (ct >= 0) store_split<64, 2 * kThreads>(acc, part, split, ct);
     if (!last_split(p.counters + tile, splits)) return;
-    sum_splits(acc, part, splits);
+    if (ct < 0) return;
+    sum_splits<64, 2 * kThreads>(acc, part, splits, ct);
+  } else if (ct < 0) {
+    return;
   }
-  // wgmma's D layout, as in the data products: rows k10 + 16 w + g (+ 8),
-  // columns n0 + 8 j + 2 t, + 1.
-  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  // wgmma's D layout: consumer warp w (0 .. 7) holds rows k10 + 16 w + g
+  // and + 8, columns n0 + 8 j + 2 t, + 1 (g = lane / 4, t = lane % 4).
+  const int warp = ct / 32, g = (ct % 32) / 4, t = ct % 4;
   float* out = p.out + static_cast<size_t>(tap) * Ka * Kb;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const size_t row = static_cast<size_t>(k10 + 16 * warp + g + 8 * h) * Kb;
+    const int row = k10 + 16 * warp + g + 8 * h;
+    if (row >= Ka) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float2*>(out + row + n0 + 8 * j + 2 * t) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    for (int j = 0; j < kGTile / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (col < Kb)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * Kb + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
   }
 }
 
@@ -758,13 +983,13 @@ cudaError_t product(const Product& p, bool split_b, int dev, cudaStream_t s) {
 template <bool kShift>
 cudaError_t wgrad(const Wgrad& p, int dev, cudaStream_t s) {
   static bool opted[64] = {};
-  const cudaError_t e =
-      opt_in(chain_bwd_wgrad_kernel<kShift>, kWSmemBytes, dev, opted);
+  const cudaError_t e = opt_in(chain_bwd_wgrad_tiled_kernel<kShift>,
+                               kGSmemBytes, dev, opted);
   if (e != cudaSuccess) return e;
   const int splits = ceil_div(p.M, p.chunk), taps = kShift ? 9 : 1;
-  chain_bwd_wgrad_kernel<kShift>
-      <<<dim3(p.Kb / 64, p.Ka / 64, splits * taps), kThreads, kWSmemBytes,
-          s>>>(p);
+  chain_bwd_wgrad_tiled_kernel<kShift>
+      <<<dim3(ceil_div(p.Kb, kGTile), ceil_div(p.Ka, kGTile), splits * taps),
+         kGThreads, kGSmemBytes, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -784,20 +1009,24 @@ cudaError_t colsum(const float* v, float* out, float* part, int M, int N,
 long long most(long long a, long long b) { return a > b ? a : b; }
 
 // Floats of scratch for the partial sums: a split data product's tiles
-// (rows padded to 64), a weight gradient's, a bias's.
+// (rows padded to 64), a weight gradient's (C and F padded to its 128 x
+// 128 tiles), a bias's.
 long long part_floats(int M, int C, int F, int chunk_w13, int chunk_w2,
                       int chunk_bias, int split_in, int split_3x3,
                       int split_out) {
   const long long mp = static_cast<long long>(ceil_div(M, kBM)) * kBM;
-  long long n = most(static_cast<long long>(ceil_div(M, chunk_w13)) * C * F,
-                     static_cast<long long>(ceil_div(M, chunk_w2)) * 9 * F * F);
+  const long long cp = static_cast<long long>(ceil_div(C, kGTile)) * kGTile;
+  const long long fp = static_cast<long long>(ceil_div(F, kGTile)) * kGTile;
+  long long n = most(ceil_div(M, chunk_w13) * cp * fp,
+                     ceil_div(M, chunk_w2) * 9 * fp * fp);
   n = most(n, static_cast<long long>(ceil_div(M, chunk_bias)) * most(C, F));
   n = most(n, most(split_in, split_3x3) * mp * F);
   return most(n, split_out * mp * C);
 }
 
 // Counters: one per output tile of the product or weight gradient with
-// the most tiles.
+// the most tiles (a weight gradient's counted as 64 x 64, more than it
+// has).
 long long counter_slots(int M, int C, int F) {
   const long long rows = ceil_div(M, kBM);
   return most(most(rows * (most(C, F) / 64), 9LL * (F / 64) * (F / 64)),
@@ -836,10 +1065,10 @@ extern "C" long long scda_bottleneck_chain_bwd_workspace(
 // 3.  Outputs, each skipped where null: dx, dw1..db3 in the shapes of x
 // and of w1 (N,C,F), b1, w2 (N,9,F,F) (tap, in, out), b2, w3 (N,F,C), b3.
 // work: scda_bottleneck_chain_bwd_workspace floats.  chunk_*: pixels per
-// split of the weight (w1 and w3; w2) and bias gradients, multiples of
-// 16; split_*: K splits of the reduce-side 1x1 products (remat y1, dy2),
-// the 3x3s (a divisor of 9) and the expand-side ones (remat x, dx).
-// C % 64 == 0, F % 64 == 0.
+// split of the weight (w1 and w3; w2) and bias gradients; split_*: K
+// splits of the reduce-side 1x1 products (remat y1, dy2), the 3x3s (a
+// divisor of 9) and the expand-side ones (remat x, dx).  C % 64 == 0, F %
+// 64 == 0.
 extern "C" int scda_bottleneck_chain_bwd_f32(
     const void* x_, const void* w1_, const void* b1_, const void* w2t_,
     const void* b2_, const void* w3_, const void* b3_, const void* w1t_,
@@ -851,6 +1080,7 @@ extern "C" int scda_bottleneck_chain_bwd_f32(
   const int M = B * H * W;
   if (M <= 0 || N <= 0) return cudaSuccess;
   if ((data_passes != 2 && data_passes != 3) || C % 64 || F % 64 ||
+      chunk_w13 < 1 || chunk_w2 < 1 || chunk_bias < 1 ||
       split_in < 1 || C % (split_in * kSlice) || split_out < 1 ||
       F % (split_out * kSlice) || split_3x3 < 1 || 9 % split_3x3)
     return static_cast<int>(cudaErrorInvalidValue);

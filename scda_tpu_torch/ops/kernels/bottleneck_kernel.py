@@ -40,6 +40,7 @@ call ends; :func:`chain_bwd_launcher` hands them back for checks.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 
 import torch
@@ -194,12 +195,20 @@ def bottleneck_chain_fwd(x, w1, b1, w2, b2, w3, b3, *,
 TAPS = tuple((t // 3 - 1, t % 3 - 1) for t in range(9))
 GRAD_NAMES = ("x", "w1", "b1", "w2", "b2", "w3", "b3")
 ALL_GRADS = (True,) * 7
-# The weight gradients reduce over the B*H*W pixels; the kernel cuts that
-# axis into splits of partial sums (added in split order afterwards), so
-# that about WGRAD_BLOCKS tiles run at once (four on each of the H100's
-# 132 SMs), with at least WGRAD_MIN_ROWS pixels a split.
-WGRAD_BLOCKS = 528
-WGRAD_MIN_ROWS = 256
+# The weight gradients reduce over the B*H*W pixels on 128 x 128 output
+# tiles, one block an SM; the kernel cuts the pixels into splits of
+# partial sums (added in split order afterwards) that only balance its
+# waves over the SMS SMs: wgrad_plan's cost, in 32-pixel slices, a block's
+# fill and drain WGRAD_BLOCK_SLICES and a split's partials
+# WGRAD_SUM_SLICES (kernel_probe k4bwd-phases).
+SMS = 132
+WGRAD_TILE = 128
+WGRAD_SLICE = 32
+WGRAD_BLOCK_SLICES = 3.0
+WGRAD_SUM_SLICES = 0.35
+# The weight gradients' paths, as ``bottleneck_chain_bwd.wgrad_paths``
+# counts them and the ``scda.k4.bwd`` span's ``wgrad`` id names them.
+WGRAD_PATHS = ("tiled",)
 BIAS_CHUNK = 256
 
 
@@ -243,11 +252,59 @@ def data_passes(dtype) -> int:
     return 2 if dtype == torch.bfloat16 else 3
 
 
-def wgrad_chunk(m: int, tiles: int) -> int:
-    """Pixels per split of a weight gradient with ``tiles`` 64x64 output
-    tiles over ``m`` pixels: a multiple of 16 (the kernel's slice)."""
-    splits = max(1, min(-(-WGRAD_BLOCKS // tiles), m // WGRAD_MIN_ROWS))
-    return -(-m // (splits * 16)) * 16
+def wgrad_cost(m: int, tiles: int, splits: int) -> float:
+    """A weight gradient's time in 32-pixel slices of one block for ``m``
+    pixels in ``splits`` splits over ``tiles`` 128x128 tiles: the waves of
+    one block an SM, each the longest split's slices plus a block's fill
+    and drain, then the last block of a tile adding every split's
+    partials."""
+    chunk = -(-m // (splits * WGRAD_SLICE)) * WGRAD_SLICE
+    waves = -(-tiles * splits // SMS)
+    return (waves * (chunk // WGRAD_SLICE + WGRAD_BLOCK_SLICES)
+            + (WGRAD_SUM_SLICES * splits if splits > 1 else 0.0))
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(m: int, ka: int, kb: int, taps: int) -> int:
+    """Pixels per split of a weight gradient (taps, ka, kb) over ``m``
+    pixels: the split count of least :func:`wgrad_cost` up to eight
+    waves (the fewest where two tie), as a whole number of 32-pixel
+    slices.  ceil(m / chunk) splits cover the pixels, none empty."""
+    tiles = taps * -(-ka // WGRAD_TILE) * -(-kb // WGRAD_TILE)
+    most = min(-(-m // WGRAD_SLICE), -(-8 * SMS // tiles))
+    best = min(range(1, most + 1),
+               key=lambda s: (wgrad_cost(m, tiles, s), s))
+    return -(-m // (best * WGRAD_SLICE)) * WGRAD_SLICE
+
+
+def chain_wgrad_chunks(m: int, c: int, f: int):
+    """The pixel chunks of a chain's weight gradients: dW1 and dW3 (C x F,
+    one chunk for both), dW2 (9 taps of F x F)."""
+    return wgrad_plan(m, c, f, 1), wgrad_plan(m, f, f, 9)
+
+
+def chain_bwd_workspace(b: int, h: int, w: int, c: int, f: int, n: int,
+                        chunk_w13: int, chunk_w2: int, chunk_bias: int,
+                        split_in: int, split_3x3: int, split_out: int) -> int:
+    """Floats of the kernel's workspace, as
+    ``scda_bottleneck_chain_bwd_workspace`` reckons it: the remat (x_1 ..
+    x_N, then every block's y1 and y2), two (M, C) cotangent buffers, dy2
+    and dy1, the partial sums (the largest of a split weight gradient's,
+    C and F padded to its 128x128 tiles, a split bias's, a split data
+    product's, rows padded to 64), then one int counter per output tile of
+    the product or weight gradient (as 64x64 tiles) with the most."""
+    m = b * h * w
+
+    def up(v, to):
+        return -(-v // to) * to
+
+    cp, fp, mp = up(c, WGRAD_TILE), up(f, WGRAD_TILE), up(m, 64)
+    part = max(-(-m // chunk_w13) * cp * fp, -(-m // chunk_w2) * 9 * fp * fp,
+               -(-m // chunk_bias) * max(c, f),
+               max(split_in, split_3x3) * mp * f, split_out * mp * c)
+    counters = max((mp // 64) * (max(c, f) // 64), 9 * (f // 64) ** 2,
+                   (c // 64) * (f // 64))
+    return n * m * c + 2 * n * m * f + 2 * m * c + 2 * m * f + part + counters
 
 
 def _shift(t, dy, dx):
@@ -395,18 +452,23 @@ def chain_bwd_launcher(x, w1, b1, w2, b2, w3, b3, g, *,
     packed = ops[:3] + (ops[8],) + ops[4:8] + ops[9:]
     gf = g.detach().float().contiguous()
     m = b * h * w
-    chunks = (wgrad_chunk(m, (c // 64) * (f // 64)),
-              wgrad_chunk(m, 9 * (f // 64) ** 2), BIAS_CHUNK)
+    chunks = chain_wgrad_chunks(m, c, f) + (BIAS_CHUNK,)
     splits = chain_bwd_splits(m, c, f)
+    floats = chain_bwd_workspace(b, h, w, c, f, n, *chunks, *splits)
     size = _build.function("scda_bottleneck_chain_bwd_workspace",
                            [ctypes.c_int] * 12, ctypes.c_longlong)
-    work = torch.empty(size(b, h, w, c, f, n, *chunks, *splits),
-                       dtype=torch.float32, device=x.device)
+    if size(b, h, w, c, f, n, *chunks, *splits) != floats:
+        raise RuntimeError("bottleneck_chain_bwd: chain_bwd_workspace no "
+                           "longer reckons the C function's workspace")
+    work = torch.empty(floats, dtype=torch.float32, device=x.device)
     outs = [torch.empty(t.shape, dtype=torch.float32, device=x.device)
             if need else None
             for t, need in zip((x, w1, b1, w2, b2, w3, b3), needs)]
     fn = _build.function(name, [ctypes.c_void_p] * 19 + [ctypes.c_int] * 13
                          + [ctypes.c_void_p])
+    # Weight-gradient launches a call: dW1, dW2 and dW3 of each block asked
+    # for.
+    wgrads = n * (needs[1] + needs[3] + needs[5])
 
     def launch():
         with torch.cuda.device(x.device):
@@ -416,6 +478,7 @@ def chain_bwd_launcher(x, w1, b1, w2, b2, w3, b3, g, *,
                     data_passes(dtype), _build.stream_ptr(x.device))
         _build.check(rc, name)
         bottleneck_chain_bwd.launches += 1
+        bottleneck_chain_bwd.wgrad_paths["tiled"] += wgrads
         return tuple(outs)
 
     mc, mf = m * c, m * f
@@ -464,7 +527,9 @@ def bottleneck_chain_bwd(x, w1, b1, w2, b2, w3, b3, g, *,
 class _BottleneckChain(torch.autograd.Function):
     """Forward: K4.  Backward: the K4 backward kernel in f32 on the inputs
     rounded to ``dtype`` (the plain twins on the CPU), inside a
-    ``scda.k4.bwd`` span with the ids ``ids`` of its forward's."""
+    ``scda.k4.bwd`` span with the ids ``ids`` of its forward's and
+    ``wgrad``, the weight gradients' path (:data:`WGRAD_PATHS`; ``plain``,
+    the twin's, on the CPU)."""
 
     @staticmethod
     def forward(ctx, dtype, ids, x, *ws):
@@ -475,7 +540,8 @@ class _BottleneckChain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, *ws = ctx.saved_tensors
-        with span("k4.bwd", **(ctx.ids or {})):
+        path = "plain" if x.device.type == "cpu" else "tiled"
+        with span("k4.bwd", wgrad=path, **(ctx.ids or {})):
             grads = bottleneck_chain_bwd(x, *ws, g, dtype=ctx.dtype,
                                          needs=ctx.needs_input_grad[2:])
             return (None, None) + tuple(
@@ -503,3 +569,5 @@ def bottleneck_chain(x, w1, b1, w2, b2, w3, b3, *, dtype=torch.bfloat16):
 
 bottleneck_chain.launches = 0
 bottleneck_chain_bwd.launches = 0
+# Weight-gradient kernel launches by path (:data:`WGRAD_PATHS`).
+bottleneck_chain_bwd.wgrad_paths = dict.fromkeys(WGRAD_PATHS, 0)

@@ -28,14 +28,17 @@ row) and ``clustered`` around a few centres (most boxes suppressed: the
 scan walks the whole row).  ``k2`` takes its axis weights from
 ``roi_align_axis_weights`` on seeded rois, two samples per bin edge as
 on the paths, forward in bf16 and backward on an f32 cotangent.
-``k4bwd`` times K4's backward at the three ResNet-101 stages and layer3
-at bs 8 with the gradients the model asks for (x, w1, w2, w3): through
+``k4bwd`` times K4's backward at the three ResNet-101 stages, layer3 at
+bs 8 and FPN's trained stages (layer2-4 at bs 2 at 1024x2048) with the gradients the model asks for (x, w1, w2, w3): through
 its wrapper and launched alone on packed operands, beside its twin, the
 remat it replaced (the twin's forward in f32 under autograd) and its
 tensor-core bound (the split-TF32 passes it runs at 495 TFLOP/s); it
 prints the gap to the twin at the kernel's own remat, the remat's gap to
-the f32 forward kernel's chain, and whether two launches gave the same
-bits.
+the f32 forward kernel's chain, whether two launches gave the same
+bits, and the weight gradients apart (dW1 + dW3, dW2) with their splits and
+their 3-pass TF32 bound.  ``k4bwd-phases`` times each product of the
+backward alone with a phase compiled out, the weight gradients at FPN's
+and res101-ms's shapes also at other split counts.
 
 ``k3-phases`` compiles copies of ``csrc/vgg_stem.cu`` with one phase of
 the bf16 kernel taken out (conv1_1's sums, conv1_2's taps, both) or with
@@ -70,6 +73,9 @@ from scda_tpu_torch.utils.numerics import set_card_numerics
 
 STAGES = ((1, 128, 256, 64, 2, 0.3), (1, 64, 128, 128, 3, 0.3),
           (1, 32, 64, 256, 22, 0.1))   # (B, H, W, F, blocks, expand damping)
+# FPN's trained stages at 1024x2048, bs 2: layer2, layer3, layer4.
+FPN_STAGES = ((2, 128, 256, 128, 3, 0.3), (2, 64, 128, 256, 22, 0.1),
+              (2, 32, 64, 512, 2, 0.1))
 
 
 def time_ms(fn, repeats=30):
@@ -337,7 +343,8 @@ def probe_k4bwd(device):
     gen = torch.Generator().manual_seed(0)
     needs = (True, True, False, True, False, True, False)   # the model's
     passes = bk.data_passes(torch.bfloat16)
-    for b, h, w, f, n, damp in STAGES + ((8, 32, 64, 256, 22, 0.1),):
+    for b, h, w, f, n, damp in (STAGES + ((8, 32, 64, 256, 22, 0.1),)
+                                + FPN_STAGES):
         args = chain_inputs(gen, b, h, w, f, n, damp, device)
         g = torch.randn(args[0].shape, generator=gen).to(device, torch.bfloat16)
         kw = dict(dtype=torch.bfloat16, needs=needs)
@@ -378,8 +385,20 @@ def probe_k4bwd(device):
               f"{time_ms(launch, repeats=10):.4f} ms, tensor-core bound "
               f"{bound_tc:.4f} ms, twin {time_ms(twin, repeats=3):.4f} ms, "
               f"remat under autograd {remat_ms:.4f} ms", flush=True)
-        for name, per_call, us in kernel_times(launch, calls=3)[:6]:
+        rows = kernel_times(launch, calls=3)
+        for name, per_call, us in rows[:6]:
             print(f"    {name[:64]:64s} x{per_call:5.1f}  {us:7.2f} us")
+        chunks = bk.chain_wgrad_chunks(m, c, f)
+        for label, conv, chunk, flops in (
+                ("dW1 + dW3", False, chunks[0], 2 * 2 * m * c * f * n),
+                ("dW2", True, chunks[1], 2 * 9 * m * f * f * n)):
+            ms = sum(per_call * us for name, per_call, us in rows
+                     if "wgrad" in name and ("<true>" in name) == conv) / 1e3
+            bound = 3 * flops / 495e12 * 1e3
+            print(f"    weight gradients {label}: {ms:.4f} ms (chunk "
+                  f"{chunk}, {-(-m // chunk)} splits), 3-pass TF32 bound "
+                  f"{bound:.4f} ms ({100 * bound / max(ms, 1e-9):.1f}%)",
+                  flush=True)
 
 
 K4BWD_PROBE_ENTRIES = r"""
@@ -401,14 +420,32 @@ extern "C" int probe_wgrad(const float* a, const float* bm, float* out,
 }
 """
 
+# The weight gradients' shapes in k4bwd-phases: FPN's three trained stages
+# at bs 2, then res101-ms's at bs 1, as (label, B, H, W, C, F).
+WGRAD_SHAPES = (("FPN layer2", 2, 128, 256, 512, 128),
+                ("FPN layer3", 2, 64, 128, 1024, 256),
+                ("FPN layer4", 2, 32, 64, 2048, 512),
+                ("res101-ms layer2 bs 1", 1, 64, 128, 512, 128),
+                ("res101-ms layer3 bs 1", 1, 32, 64, 1024, 256))
+# Split counts tried on the weight gradients beside the plan's, as shipped
+# only.
+WGRAD_SPLITS = (1, 2, 3, 4, 6, 8, 11, 16, 24, 33)
+
+
+def wgrad_bound_ms(m, ka, kb, taps):
+    """A weight gradient's 3-pass split-TF32 bound at 495 TFLOP/s."""
+    return 3 * 2 * m * ka * kb * taps / 495e12 * 1e3
+
 
 def probe_k4bwd_phases(device):
-    """Layer3's products of K4's backward at bs 1, one launch each, from
-    copies of ``csrc/bottleneck_chain_bwd.cu`` with a phase compiled out:
-    the copies into shared memory, the TF32 split, the tensor-core
-    products.  The differences of device time (``torch.profiler``) say
-    what each phase costs; the event time around a single launch is
-    bounded by the host's launch below about 20 us."""
+    """K4's backward products, one launch each, from copies of
+    ``csrc/bottleneck_chain_bwd.cu`` with a phase compiled out: the
+    copies into shared memory, the TF32 split, the tensor-core products.
+    Layer3's data products at bs 1; the weight gradients (dW1 / dW3, the
+    1x1s, and dW2, the 3x3) at :data:`WGRAD_SHAPES`, at the plan's split
+    count and others, each beside its 3-pass TF32 bound.  The differences of device time (``torch.profiler``) say what
+    each phase costs; the event time around a single launch is bounded by
+    the host's launch below about 20 us."""
     from scda_tpu_torch.ops.kernels import _build
     from scda_tpu_torch.ops.kernels import bottleneck_kernel as bk
 
@@ -422,13 +459,12 @@ def probe_k4bwd_phases(device):
         return text.replace(old, new)
 
     src = sub(src, "wgmma_tile<BN>(tmp,", "if (PROBE_MMA) wgmma_tile<BN>(tmp,", 3)
-    src = sub(src, "wgmma_tile<64>(tmp,", "if (PROBE_MMA) wgmma_tile<64>(tmp,", 3)
+    src = sub(src, "wgmma_m64n128k8_ra(tmp,",
+              "if (PROBE_MMA) wgmma_m64n128k8_ra(tmp,", 3)
     src = sub(src, "split_slice(0);", "if (PROBE_SPLIT) split_slice(0);", 1)
     src = sub(src, "split_slice((kt + 1) % kStages);",
               "if (PROBE_SPLIT) split_slice((kt + 1) % kStages);", 1)
-    src = sub(src, "split_slice(0, 0);", "if (PROBE_SPLIT) split_slice(0, 0);", 1)
-    src = sub(src, "split_slice((kt + 1) & 1, (kt + 1) & 1);",
-              "if (PROBE_SPLIT) split_slice((kt + 1) & 1, (kt + 1) & 1);", 1)
+    src = sub(src, "split_slice(s);", "if (PROBE_SPLIT) split_slice(s);", 1)
     src = sub(src, "      cp_async16(", "      if (PROBE_LOAD) cp_async16(", 4)
     src += K4BWD_PROBE_ENTRIES
     out_dir = os.path.join(_build.BUILD_DIR, "probe")
@@ -453,59 +489,75 @@ def probe_k4bwd_phases(device):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {name!r} variant:\n{log}")
         libs[name] = ctypes.CDLL(so)
+    gen = torch.Generator().manual_seed(0)
+    part = torch.empty((40 * 2048 * 1024,), device=device)
+    counters = torch.zeros((65536,), dtype=torch.int32, device=device)
+
+    def run(case, kind, ptrs, ints, only=False, bound=None):
+        for name, lib in libs.items():
+            if only and name != "as shipped":
+                continue
+            fn = getattr(lib, f"probe_{kind}")
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * len(
+                ints) + [ctypes.c_void_p]
+
+            def call():
+                rc = fn(*(t.data_ptr() for t in ptrs), part.data_ptr(),
+                        counters.data_ptr(), *ints, _build.stream_ptr(device))
+                if rc:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+
+            rows = kernel_times(call, calls=10)
+            ms = sum(r[1] * r[2] for r in rows) / 1e3 or float("nan")
+            extra = (f", 3-pass TF32 bound {bound:.4f} ms ({100 * bound / ms:.1f}%)"
+                     if bound and name == "as shipped" else "")
+            print(f"k4bwd-phases {case:44s} {name:12s} device {ms:.4f} ms a "
+                  f"launch, with the host {time_ms(call):.4f} ms{extra}",
+                  flush=True)
+
     b, h, w, c, f = 1, 32, 64, 1024, 256
     m = b * h * w
     s_in, s_3x3, s_out = bk.chain_bwd_splits(m, c, f)
-    gen = torch.Generator().manual_seed(0)
     x = torch.randn((m, c), generator=gen).to(device)
     y = torch.randn((m, f), generator=gen).to(device)
     w1t = torch.randn((f, c), generator=gen).to(device)
     w3t = torch.randn((c, f), generator=gen).to(device)
     w2t = torch.randn((f, 9 * f), generator=gen).to(device)
     out = torch.empty((m, c), device=device)
-    dw = torch.empty((9 * f * f + c * f,), device=device)
-    part = torch.empty((16 * m * c,), device=device)
-    counters = torch.zeros((65536,), dtype=torch.int32, device=device)
-    cases = {
-        f"reduce 1x1 K={c} N={f} splits {s_in}":
-            ("product", (x, w1t, out, m, f, c, h, w, s_in, 0)),
-        f"3x3 K={9 * f} N={f} splits {s_3x3}":
-            ("product", (y, w2t, out, m, f, 9 * f, h, w, s_3x3, 1)),
-        f"expand 1x1 K={f} N={c} splits {s_out}":
-            ("product", (y, w3t, out, m, c, f, h, w, s_out, 0)),
-        f"wgrad 1x1 {f}x{c} chunk {bk.wgrad_chunk(m, (c // 64) * (f // 64))}":
-            ("wgrad", (y, x, dw, m, f, c, h, w,
-                       bk.wgrad_chunk(m, (c // 64) * (f // 64)), 0)),
-        f"wgrad 3x3 9x{f}x{f} chunk {bk.wgrad_chunk(m, 9 * (f // 64) ** 2)}":
-            ("wgrad", (y, y, dw, m, f, f, h, w,
-                       bk.wgrad_chunk(m, 9 * (f // 64) ** 2), 1)),
-    }
-    # The data products at other K splits, as shipped only.
+    run(f"reduce 1x1 K={c} N={f} splits {s_in}", "product", (x, w1t, out),
+        (m, f, c, h, w, s_in, 0))
+    run(f"3x3 K={9 * f} N={f} splits {s_3x3}", "product", (y, w2t, out),
+        (m, f, 9 * f, h, w, s_3x3, 1))
+    run(f"expand 1x1 K={f} N={c} splits {s_out}", "product", (y, w3t, out),
+        (m, c, f, h, w, s_out, 0))
     for s3 in (1, 3, 9):
-        cases[f"3x3 K={9 * f} N={f} splits {s3} (as shipped only)"] = (
-            "product", (y, w2t, out, m, f, 9 * f, h, w, s3, 1))
+        run(f"3x3 K={9 * f} N={f} splits {s3} (as shipped only)", "product",
+            (y, w2t, out), (m, f, 9 * f, h, w, s3, 1), only=True)
     for s1 in (1, 2, 4, 8):
-        cases[f"reduce 1x1 K={c} N={f} splits {s1} (as shipped only)"] = (
-            "product", (x, w1t, out, m, f, c, h, w, s1, 0))
-    for case, (kind, (a, bt, o, *ints)) in cases.items():
-        for name, lib in libs.items():
-            if "only" in case and name != "as shipped":
-                continue
-            fn = getattr(lib, f"probe_{kind}")
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-                ctypes.c_void_p]
+        run(f"reduce 1x1 K={c} N={f} splits {s1} (as shipped only)",
+            "product", (x, w1t, out), (m, f, c, h, w, s1, 0), only=True)
+    del x, y, w1t, w3t, w2t, out
 
-            def call():
-                rc = fn(a.data_ptr(), bt.data_ptr(), o.data_ptr(),
-                        part.data_ptr(), counters.data_ptr(), *ints,
-                        _build.stream_ptr(device))
-                if rc:
-                    raise RuntimeError(f"{name}: CUDA error {rc}")
-
-            rows = kernel_times(call, calls=10)
-            print(f"k4bwd-phases {case:34s} {name:12s} device "
-                  f"{rows[0][2] / 1e3:.4f} ms a launch, with the host "
-                  f"{time_ms(call):.4f} ms", flush=True)
+    for label, b, h, w, c, f in WGRAD_SHAPES:
+        m = b * h * w
+        x = torch.randn((m, c), generator=gen).to(device)
+        y = torch.randn((m, f), generator=gen).to(device)
+        dw = torch.empty((9 * f * f + c * f,), device=device)
+        for kind, a, bm, ka, kb, taps in (("1x1", y, x, f, c, 1),
+                                          ("3x3", y, y, f, f, 9)):
+            bound = wgrad_bound_ms(m, ka, kb, taps)
+            name = f"{label} wgrad {kind} {taps}x{ka}x{kb}"
+            chunk = bk.wgrad_plan(m, ka, kb, taps)
+            run(f"{name} chunk {chunk} (the plan's)", "wgrad", (a, bm, dw),
+                (m, ka, kb, h, w, chunk, taps == 9), bound=bound)
+            for s in WGRAD_SPLITS:
+                other = -(-m // (s * 32)) * 32
+                if other != chunk and -(-m // other) == s:
+                    run(f"{name} chunk {other} (splits {s}, as shipped "
+                        f"only)", "wgrad", (a, bm, dw),
+                        (m, ka, kb, h, w, other, taps == 9), only=True,
+                        bound=bound)
+        del x, y, dw
 
 
 def probe_k3_phases(device):

@@ -15,7 +15,8 @@ and blocking host calls a unit, the per-layer numbers the spans give
 the targets' ms, blocking calls an image, the kernel library's load), the
 idle gaps between kernels by the innermost span the host was in, an FPN
 cell's RPN and RoI-Align spans by pyramid level, the K4 spans against
-the harness's ``bench.chain`` ranges, which autograd
+the harness's ``bench.chain`` ranges, each weight-gradient path's share
+of the ``scda.k4.bwd`` calls and device ms, which autograd
 nodes ran inside ``scda.adapt.bwd``, and the device work each
 ``scda.optimizer`` span launched: its kernels a step, and the share of
 steps that ran ``ops.kernels.sgd_kernel``'s update kernel (100 on the
@@ -206,6 +207,46 @@ def fpn_levels(events, units: int) -> dict:
     return out
 
 
+# The weight-gradient kernel of each path of K4's backward, by a word of
+# its name: the tiled one, and the 64 x 64 one it replaced (so that an
+# older checkout's trace reads too).
+WGRAD_KERNELS = (("tiled", "chain_bwd_wgrad_tiled_kernel"),
+                 ("split64", "chain_bwd_wgrad_kernel"))
+
+
+def k4_bwd_paths(events, units: int) -> dict:
+    """The ``scda.k4.bwd`` spans by the path K4's backward took for its
+    weight gradients: the span's ``wgrad`` id where the trace keeps ids,
+    else the path whose kernel (:data:`WGRAD_KERNELS`) ran inside it
+    (``none`` where none did); each path's share of the calls and of the
+    spans' device ms (the work whose runtime call starts inside, found by
+    correlation id), and its device ms a unit."""
+    calls = {e.id: _interval(e)[0] for e in events
+             if not profile._is_device(e) and e.name.startswith("cu")}
+    work = [(calls[e.id], e.name, (_interval(e)[1] - _interval(e)[0]) / 1e3)
+            for e in events if profile._is_device(e) and e.id in calls
+            and not getattr(e, "is_user_annotation", False)]
+    by = {}
+    for span in events:
+        if span.name != "scda.k4.bwd" or profile._is_device(span):
+            continue
+        s0, s1 = _interval(span)
+        inside = [(name, ms) for t, name, ms in work if s0 <= t <= s1]
+        ids = getattr(span, "kwinputs", None) or {}
+        path = ids.get("wgrad") or next(
+            (p for p, word in WGRAD_KERNELS
+             if any(word in name for name, _ in inside)), "none")
+        row = by.setdefault(str(path), {"calls": 0, "ms": 0.0})
+        row["calls"] += 1
+        row["ms"] += sum(ms for _, ms in inside)
+    n = sum(r["calls"] for r in by.values())
+    ms = sum(r["ms"] for r in by.values())
+    return {path: {"calls_pct": 100.0 * r["calls"] / n,
+                   "ms_pct": 100.0 * r["ms"] / ms if ms else None,
+                   "ms_per_unit": r["ms"] / units}
+            for path, r in sorted(by.items())}
+
+
 FUSED_KERNEL = "sgd_update_kernel"
 
 
@@ -282,6 +323,7 @@ def report(workload: str, seed: int, window: float, device,
             "k4": [span_ms.get("scda.k4"), ranges.get("bench.chain")],
             "k4.bwd": [span_ms.get("scda.k4.bwd"),
                        ranges.get("bench.chain_bwd")]},
+        "k4_bwd_wgrad_paths": k4_bwd_paths(events, units),
         "adapt_bwd_nodes": adapt_bwd_nodes(events),
         "optimizer": optimizer_kernels(events),
         "fpn_levels": fpn_levels(events, units),

@@ -278,15 +278,15 @@ def _kernel_model(x, ws, g, dtype):
     splits and ``data_passes(dtype)`` passes (the 3x3s as the forward's
     gather of the taps, its transpose over the taps reversed); the weight
     gradients through :func:`_splits` in three passes with
-    ``wgrad_chunk``'s splits; the biases' by ``BIAS_CHUNK`` rows in f32.
+    ``chain_wgrad_chunks``' splits; the biases' by ``BIAS_CHUNK`` rows in
+    f32.
     Returns (the seven gradients, the remat (xs, y1s, y2s))."""
     xr, w1, b1, w2, b2, w3, b3, w1t, w2t, w2r, w3t = bk.chain_bwd_operands(
         x, ws, dtype)
     b, h, w, c = x.shape
     n, _, f = w1.shape
     m = b * h * w
-    c13 = bk.wgrad_chunk(m, (c // 64) * (f // 64))
-    c2 = bk.wgrad_chunk(m, 9 * (f // 64) ** 2)
+    c13, c2 = bk.chain_wgrad_chunks(m, c, f)
     s_in, s_3x3, s_out = bk.chain_bwd_splits(m, c, f)
     passes = bk.data_passes(dtype)
 
@@ -352,7 +352,7 @@ def test_kernel_model_matches_the_twin(rng, b, h, w, c, f, n, dtype):
     largest magnitude of the twin's f32 remat."""
     x, ws, g = _case(rng, b, h, w, c, f, n)
     m = b * h * w
-    assert bk.wgrad_chunk(m, (c // 64) * (f // 64)) < m   # several splits
+    assert bk.chain_wgrad_chunks(m, c, f)[0] < m   # several splits
     tdt = getattr(torch, dtype)
     args = [torch.from_numpy(a) for a in (x, *ws)]
     gt = torch.from_numpy(g).to(tdt)
@@ -408,28 +408,141 @@ def test_product_splits(m, c, f, want):
     (64 * 128, 512, 128), (32 * 64, 1024, 256),              # bs 1
     (8 * 64 * 128, 512, 128), (8 * 32 * 64, 1024, 256),      # bs 8
     (128 * 256, 256, 64), (96, 256, 64),
+    (2 * 128 * 256, 512, 128), (2 * 32 * 64, 2048, 512),     # FPN, bs 2
 ])
 def test_wgrad_splits_cover_the_pixels(m, c, f):
-    """Each weight gradient's splits: a multiple of 16 pixels each (the
-    kernel's slice), together exactly covering the pixels with none
-    empty, at least WGRAD_MIN_ROWS pixels each where there is more than
-    one, and as many as give the card WGRAD_BLOCKS tiles (fewer by the
-    rounding of a split up to 16 pixels)."""
-    for tiles in ((c // 64) * (f // 64), 9 * (f // 64) ** 2):
-        chunk = bk.wgrad_chunk(m, tiles)
+    """Each weight gradient's splits: a whole number of 32-pixel slices
+    each (the kernel's slice), together exactly covering the pixels with
+    none empty, at most eight waves of one block an SM, and none of the
+    other split counts up to there cheaper by ``wgrad_cost``."""
+    for ka, kb, taps in ((c, f, 1), (f, f, 9)):
+        chunk = bk.wgrad_plan(m, ka, kb, taps)
         splits = -(-m // chunk)
-        assert chunk % 16 == 0 and (splits - 1) * chunk < m <= splits * chunk
-        assert splits == 1 or chunk >= bk.WGRAD_MIN_ROWS
-        target = max(1, min(-(-bk.WGRAD_BLOCKS // tiles),
-                            m // bk.WGRAD_MIN_ROWS))
-        assert 0.9 * target <= splits <= target
+        assert chunk % 32 == 0 and (splits - 1) * chunk < m <= splits * chunk
+        tiles = taps * -(-ka // 128) * -(-kb // 128)
+        most = min(-(-m // 32), -(-8 * bk.SMS // tiles))
+        assert splits <= most
+        cost = bk.wgrad_cost(m, tiles, splits)
+        assert all(cost <= bk.wgrad_cost(m, tiles, s)
+                   for s in range(1, most + 1))
+
+
+# FPN's trained stages at bs 2 (layer2, layer3, layer4), then res101-ms's
+# at bs 1 (layer2, layer3): (B*H*W pixels, C, F).
+WGRAD_STAGES = {"fpn2": (2 * 128 * 256, 512, 128),
+                "fpn3": (2 * 64 * 128, 1024, 256),
+                "fpn4": (2 * 32 * 64, 2048, 512),
+                "ms2": (64 * 128, 512, 128),
+                "ms3": (32 * 64, 1024, 256)}
+# Their split counts (dW1 and dW3, dW2): at each the fastest that
+# kernel_probe k4bwd-phases timed (PERF.md, section 6).
+WGRAD_STAGE_SPLITS = {"fpn2": (33, 14), "fpn3": (8, 11), "fpn4": (2, 8),
+                      "ms2": (26, 14), "ms3": (8, 3)}
+
+
+def _wgrad_stores(ka, kb, taps):
+    """How often the weight-gradient kernel stores each element of its
+    (taps, ka, kb) output: its grid (kb / 128, ka / 128, taps), rounded
+    up, one epilogue a tile by its 256 consumer threads, wgmma's D layout
+    (consumer warp w holds rows 16 w + g and + 8, columns 8 j + 2 t and +
+    1; g = lane / 4, t = lane % 4), rows past ka and columns past kb not
+    stored."""
+    tile = bk.WGRAD_TILE
+    lane = np.arange(2 * tile)
+    warp, g, t = lane // 32, (lane % 32) // 4, lane % 4
+    rows = (16 * warp + g)[:, None, None] + 8 * np.arange(2)[None, :, None]
+    cols = (8 * np.arange(tile // 8))[None, None, :] + 2 * t[:, None, None]
+    rows, cols = np.broadcast_arrays(rows, cols)
+    rows = np.concatenate([rows.ravel()] * 2)
+    cols = np.concatenate([cols.ravel(), cols.ravel() + 1])
+    stores = np.zeros((taps, ka, kb), dtype=np.int64)
+    for tap in range(taps):
+        for k10 in range(0, ka, tile):
+            for n0 in range(0, kb, tile):
+                r, c = k10 + rows, n0 + cols
+                keep = (r < ka) & (c < kb)
+                np.add.at(stores[tap], (r[keep], c[keep]), 1)
+    return stores
+
+
+@pytest.mark.parametrize("stage", sorted(WGRAD_STAGES))
+@pytest.mark.parametrize("conv", [False, True], ids=["1x1", "3x3"])
+def test_wgrad_plan_covers_every_pixel_and_weight_once(stage, conv):
+    """At FPN's and res101-ms's trained stages, each weight gradient's
+    plan: its splits (blocks ``split * chunk`` .. + chunk, cut at the
+    pixel count, in ``ceil(m / chunk)`` of them) cover the pixels exactly
+    once with none empty, the chunk a whole number of 32-pixel slices; the
+    output tiles store every element of the (taps, Ka, Kb) gradient
+    exactly once; its partials fit the workspace's."""
+    m, c, f = WGRAD_STAGES[stage]
+    ka, kb, taps = (f, f, 9) if conv else (c, f, 1)
+    chunk = bk.wgrad_plan(m, ka, kb, taps)
+    splits = -(-m // chunk)
+    ranges = [(s * chunk, min(m, (s + 1) * chunk)) for s in range(splits)]
+    assert all(a < b for a, b in ranges)
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(splits - 1))
+    assert chunk % bk.WGRAD_SLICE == 0
+    assert (_wgrad_stores(ka, kb, taps) == 1).all()
+    tiles = taps * -(-ka // 128) * -(-kb // 128)
+    floats = bk.chain_bwd_workspace(1, 1, m, c, f, 1,
+                                    *bk.chain_wgrad_chunks(m, c, f),
+                                    bk.BIAS_CHUNK,
+                                    *bk.chain_bwd_splits(m, c, f))
+    assert splits * tiles * 128 * 128 <= floats - m * (3 * c + 4 * f)
+
+
+@pytest.mark.parametrize("stage", sorted(WGRAD_STAGES))
+def test_wgrad_plan_at_the_trained_stages(stage):
+    """The split counts that the plan gives each trained stage's weight
+    gradients are the ones PERF.md states, each the fastest that
+    ``kernel_probe k4bwd-phases`` timed at that shape."""
+    m, c, f = WGRAD_STAGES[stage]
+    assert tuple(-(-m // chunk) for chunk in bk.chain_wgrad_chunks(m, c, f)
+                 ) == WGRAD_STAGE_SPLITS[stage]
+
+
+@pytest.mark.parametrize("b,h,w,c,f,n", [
+    (1, 32, 64, 1024, 256, 22), (2, 64, 128, 1024, 256, 22),
+    (2, 32, 64, 2048, 512, 2), (2, 7, 9, 256, 64, 3),
+])
+def test_workspace_reckons_the_kernel_layout(b, h, w, c, f, n):
+    """``chain_bwd_workspace`` (the C function's formula, which the
+    launcher holds it to on the card): the remat, the cotangent buffers,
+    dy2 and dy1, then scratch for the largest partial sums of any split
+    product (a weight gradient's whole 128 x 128 tiles, a data product's
+    64-row tiles, a bias's), then the split counters."""
+    m = b * h * w
+    c13, c2 = bk.chain_wgrad_chunks(m, c, f)
+    splits = bk.chain_bwd_splits(m, c, f)
+    floats = bk.chain_bwd_workspace(b, h, w, c, f, n, c13, c2,
+                                    bk.BIAS_CHUNK, *splits)
+    fixed = n * m * (c + 2 * f) + 2 * m * (c + f)
+    rows = -(-m // 64) * 64
+    counters = max((rows // 64) * (max(c, f) // 64), 9 * (f // 64) ** 2,
+                   (c // 64) * (f // 64))
+    part = floats - fixed - counters
+    for chunk, ka, kb, taps in ((c13, c, f, 1), (c2, f, f, 9)):
+        tiles = taps * -(-ka // 128) * -(-kb // 128)
+        assert -(-m // chunk) * tiles * 128 * 128 <= part
+        assert tiles <= counters
+    assert -(-m // bk.BIAS_CHUNK) * max(c, f) <= part
+    assert max(splits[0], splits[1]) * rows * f <= part
+    assert splits[2] * rows * c <= part
+    pad = -(-c // 128) * 128, -(-f // 128) * 128
+    assert part == max(-(-m // c13) * pad[0] * pad[1],
+                       -(-m // c2) * 9 * pad[1] ** 2,
+                       -(-m // bk.BIAS_CHUNK) * max(c, f),
+                       max(splits[0], splits[1]) * rows * f,
+                       splits[2] * rows * c)
 
 
 def test_wgrad_splits_at_layer3():
-    """ResNet-101's layer3 at 512x1024, bs 1: 2048 pixels; 64 tiles of
-    dW1 and dW3 in 8 splits of 256, 144 of dW2 in 4 of 512."""
-    assert bk.wgrad_chunk(2048, 64) == 256
-    assert bk.wgrad_chunk(2048, 144) == 512
+    """ResNet-101's layer3 at 512x1024, bs 1: 2048 pixels; 16 tiles of
+    dW1 and dW3 in 8 splits of 256, 36 of dW2 in 3 of 704."""
+    assert bk.wgrad_plan(2048, 1024, 256, 1) == 256
+    assert bk.wgrad_plan(2048, 256, 1024, 1) == 256
+    assert bk.wgrad_plan(2048, 256, 256, 9) == 704
 
 
 # ---- the wrapper and the autograd.Function on the CPU -------------------
@@ -502,7 +615,7 @@ def test_profile_names_the_backward_kernels():
     ``wgrad``)."""
     rows = [("void (anonymous namespace)::chain_bwd_wgmma_kernel<true, 128, "
              "false>((anonymous namespace)::Product)", 4, 1.0),
-            ("void (anonymous namespace)::chain_bwd_wgrad_kernel<false>("
+            ("void (anonymous namespace)::chain_bwd_wgrad_tiled_kernel<false>("
              "float const*)", 2, 0.5),
             ("(anonymous namespace)::chain_bwd_sum_splits_kernel(float "
              "const*)", 2, 0.1),

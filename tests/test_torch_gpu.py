@@ -502,6 +502,28 @@ def test_bottleneck_chain_autograd_on_card(cuda, dtype):
         torch.testing.assert_close(t.grad, ref.grad, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("b,h,w,c,f,n", [
+    (2, 128, 256, 512, 128, 3), (2, 64, 128, 1024, 256, 22),
+    (2, 32, 64, 2048, 512, 2), (1, 64, 128, 512, 128, 3),
+    (1, 32, 64, 1024, 256, 22), (2, 7, 9, 256, 64, 3),
+])
+def test_chain_bwd_workspace_matches_the_c_function(cuda, b, h, w, c, f, n):
+    """``chain_bwd_workspace`` reckons the floats that
+    ``scda_bottleneck_chain_bwd_workspace`` does, at the trained stages of
+    FPN and res101-ms and at a ragged map, with the wrapper's splits."""
+    import ctypes
+
+    from scda_tpu_torch.ops.kernels import _build
+
+    bk = bottleneck_kernel
+    m = b * h * w
+    args = (b, h, w, c, f, n, *bk.chain_wgrad_chunks(m, c, f),
+            bk.BIAS_CHUNK, *bk.chain_bwd_splits(m, c, f))
+    size = _build.function("scda_bottleneck_chain_bwd_workspace",
+                           [ctypes.c_int] * 12, ctypes.c_longlong)
+    assert size(*args) == bk.chain_bwd_workspace(*args)
+
+
 # chip_smoke.py's remat gate: per map, max |d| over the map's largest
 # magnitude at most max(REMAT_FLOOR, PERTURB_FACTOR x the twin's own
 # remat's gap from the f32 forward kernel's chain).

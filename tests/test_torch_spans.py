@@ -287,6 +287,42 @@ def test_k4_backward_carries_the_ids_of_its_call():
     for e in fwd + bwd:
         assert e.kwinputs["step"] == 5 and e.kwinputs["stage"] == 16
     assert sorted(e.kwinputs["call"] for e in bwd) == sorted(calls)
+    # The backward names its weight gradients' path: the twin's here.
+    assert [e.kwinputs["wgrad"] for e in bwd] == ["plain", "plain"]
+    assert all("wgrad" not in e.kwinputs for e in fwd)
+
+
+def test_span_report_reads_the_k4_backward_paths():
+    """``span_report.k4_bwd_paths``: the ``scda.k4.bwd`` spans by their
+    weight gradients' path, the ``wgrad`` id where the trace keeps it,
+    else the weight-gradient kernel launched inside (found by correlation
+    id); each path's share of the calls and of the device ms of the work
+    launched inside, and its ms a unit."""
+    sys.path.insert(0, os.path.join(REPO, "scripts_torch"))
+    import span_report
+
+    kernel = ("void (anonymous namespace)::chain_bwd_wgrad{}_kernel<true>("
+              "(anonymous namespace)::Wgrad)")
+    events = []
+    for i, (ids, name, ms) in enumerate((
+            ({"call": 0, "wgrad": "tiled"}, kernel.format("_tiled"), 30),
+            ({}, kernel.format("_tiled"), 50),
+            ({}, kernel.format(""), 20))):
+        span = ev("scda.k4.bwd", 1000 * i, 1000 * i + 500, thread=2)
+        span.kwinputs = ids
+        events += [span, ev("cudaLaunchKernel", 1000 * i + 10,
+                            1000 * i + 12, thread=2, cid=i + 1),
+                   ev(name, 1000 * i + 600, 1000 * i + 600 + 1000 * ms, CUDA,
+                      cid=i + 1)]
+    got = span_report.k4_bwd_paths(events, units=2)
+    assert got == {
+        "split64": {"calls_pct": pytest.approx(100 / 3),
+                    "ms_pct": pytest.approx(20.0), "ms_per_unit": 10.0},
+        "tiled": {"calls_pct": pytest.approx(200 / 3),
+                  "ms_pct": pytest.approx(80.0), "ms_per_unit": 40.0}}
+    assert span_report.k4_bwd_paths(events[:1], units=1) == {
+        "tiled": {"calls_pct": 100.0, "ms_pct": None, "ms_per_unit": 0.0}}
+    assert span_report.k4_bwd_paths(events[1:3], units=1) == {}
 
 
 @pytest.mark.parametrize("name", PATHS)

@@ -29,17 +29,16 @@ import torch
 import torch.nn.functional as F
 
 from scda_tpu_torch.adapt.region_mining import MinedRegions, mine_regions
-from scda_tpu_torch.config import Config
+from scda_tpu_torch.config import Config, parse_backbone
 from scda_tpu_torch.core.grad_reverse import grad_reverse
 from scda_tpu_torch.models.detector import (
-    StepGenerators, TrainForward, forward_train, global_sum, make_anchors,
+    StepGenerators, TrainForward, forward_train, global_sum,
 )
 from scda_tpu_torch.models.discriminator import (
     PatchDiscriminator, init_discriminator_weights,
 )
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN, pool_rois
-from scda_tpu_torch.models.fpn import fpn_depth
-from scda_tpu_torch.models.rpn import propose
+from scda_tpu_torch.models.rpn import anchor_grid, propose
 from scda_tpu_torch.train.state import PlainSgd, TrainState
 from scda_tpu_torch.train.steps import (
     ScdaGenerators, check_train_config, scda_step_generators,
@@ -89,7 +88,8 @@ def create_scda_state(cfg: Config, det_state: TrainState,
 
 def discriminator_in_channels(cfg: Config) -> int:
     """Channels of the backbone's stride-16 map."""
-    return {"vgg16": 512, "tiny": 64}.get(cfg.model.backbone, 1024)
+    family = parse_backbone(cfg.model.backbone)[0]
+    return {"vgg16": 512, "tiny": 64}.get(family, 1024)
 
 
 def init_discriminator(cfg: Config, generator: torch.Generator,
@@ -150,8 +150,10 @@ def _scda_parts(
             feat_t = model.features(tgt_image)
             with torch.no_grad():
                 rpn_cls_t, rpn_bbox_t = model.rpn_out(feat_t)
-            anchors = make_anchors(cfg, (feat_t.shape[1], feat_t.shape[2]),
-                                   feat_t.device)
+            anchors = anchor_grid(
+                cfg.anchors.base_size, cfg.anchors.ratios, cfg.anchors.scales,
+                cfg.model.feat_stride, feat_t.shape[1], feat_t.shape[2],
+                feat_t.device)
             # Mining reads the top ``mining_top_n`` proposals, and greedy
             # NMS is prefix-stable (the first K kept boxes do not depend on
             # the output budget), so capping post_nms_top_n there is exact
@@ -296,7 +298,7 @@ def make_scda_train_step(model: FasterRCNN, d_model: PatchDiscriminator,
     if cfg.adapt.d_update not in ("joint", "alternating"):
         raise ValueError(f"adapt.d_update: {cfg.adapt.d_update!r} "
                          "(want 'joint' or 'alternating')")
-    if fpn_depth(cfg.model.backbone):
+    if parse_backbone(cfg.model.backbone)[0] == "resnet_fpn":
         raise ValueError(f"SCDA adapts single-level detectors; "
                          f"{cfg.model.backbone} has a feature pyramid")
     forward = (scda_forward if cfg.adapt.d_update == "joint"

@@ -35,6 +35,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from scda_tpu_torch.config import parse_backbone
 from scda_tpu_torch.models.backbones.resnet import RESNET_DEPTHS
 from scda_tpu_torch.models.backbones.vgg import VGG16_LAYOUT
 
@@ -88,7 +89,8 @@ def state_dict_from_jax(params: Mapping[str, Any], backbone: str,
                         num_anchors: int = 9) -> Dict[str, np.ndarray]:
     """JAX params tree -> the port's state dict (numpy values)."""
     sd: Dict[str, np.ndarray] = {}
-    if backbone == "vgg16":
+    family, depth = parse_backbone(backbone)
+    if family == "vgg16":
         for item in VGG16_LAYOUT:
             if item == "M":
                 continue
@@ -100,7 +102,7 @@ def state_dict_from_jax(params: Mapping[str, Any], backbone: str,
             p = params["head"][ours]
             sd[f"RCNN_top.{torch_i}.weight"] = _linear(p["kernel"])
             sd[f"RCNN_top.{torch_i}.bias"] = _f32(p["bias"])
-    elif backbone == "tiny":
+    elif family == "tiny":
         for i, torch_i in _TINY_CONV_INDEX.items():
             p = params["backbone"][f"conv{i}"]
             sd[f"RCNN_base.{torch_i}.weight"] = _conv(p["kernel"])
@@ -108,10 +110,10 @@ def state_dict_from_jax(params: Mapping[str, Any], backbone: str,
         p = params["head"]["fc"]
         sd["RCNN_top.0.weight"] = _linear(p["kernel"])
         sd["RCNN_top.0.bias"] = _f32(p["bias"])
-    elif backbone in ("resnet50", "resnet101", "resnet152"):
-        _resnet(sd, params, int(backbone[len("resnet"):]))
+    elif family == "resnet":
+        _resnet(sd, params, depth)
     else:
-        raise ValueError(f"unknown backbone {backbone!r}")
+        raise ValueError(f"the JAX package has no {backbone!r}")
 
     rpn = params["rpn"]
     sd["RCNN_rpn.RPN_Conv.weight"] = _conv(rpn["conv"]["kernel"])

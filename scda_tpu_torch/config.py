@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Leaf configs
@@ -79,12 +79,27 @@ class ROITargetConfig:
     bbox_inside_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
 
 
+_TRUNKS = {"vgg16": ("vgg16", None), "tiny": ("tiny", None),
+           **{f"resnet{d}": ("resnet", d) for d in (50, 101, 152)},
+           **{f"resnet{d}_fpn": ("resnet_fpn", d) for d in (50, 101, 152)}}
+
+
+def parse_backbone(name: str) -> Tuple[str, Optional[int]]:
+    """The one reader of a backbone name: its family (``vgg16``, ``tiny``,
+    ``resnet``, a C4 detector, or ``resnet_fpn``, a feature pyramid) and
+    its ResNet depth (None for the first two); ValueError for others."""
+    try:
+        return _TRUNKS[name]
+    except KeyError:
+        raise ValueError(f"unknown backbone {name!r}; accepted: "
+                         f"{', '.join(_TRUNKS)}") from None
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """Detector architecture (ref: lib/model/faster_rcnn/faster_rcnn.py:~20)."""
 
-    backbone: str = "vgg16"          # vgg16 | resnet50 | resnet101 | resnet152
-                                     # | resnet50/101/152_fpn (the port's FPN)
+    backbone: str = "vgg16"          # one of parse_backbone's names
     num_classes: int = 9             # cityscapes: 8 fg + background
     feat_stride: int = 16
     rpn_channels: int = 512
@@ -126,10 +141,6 @@ class ModelConfig:
     # the projected 1024) and deletes the full-map projection pass.
     # Opt-in.
     ms_proj_after_pool: bool = False
-
-    @property
-    def head_dim(self) -> int:
-        return 4096 if self.backbone == "vgg16" else 2048
 
 
 @dataclass(frozen=True)
@@ -349,21 +360,6 @@ def parse_set_list(tokens) -> dict:
 def apply_overrides(cfg: Config, overrides: Mapping[str, Any]) -> Config:
     for key, value in overrides.items():
         cfg = replace_path(cfg, key, value)
-    return cfg
-
-
-def _merge_mapping(cfg: Any, mapping: Mapping[str, Any], prefix: str = "") -> Any:
-    for key, value in mapping.items():
-        path = key if not prefix else f"{prefix}.{key}"
-        if isinstance(value, Mapping):
-            head = path.split(".")[0]
-            sub = getattr(cfg, head)
-            # Descend dataclass fields.
-            if dataclasses.is_dataclass(sub):
-                cfg = replace_path(cfg, path.split(".")[0],
-                                   _merge_into(sub, value))
-                continue
-        cfg = replace_path(cfg, path, value)
     return cfg
 
 

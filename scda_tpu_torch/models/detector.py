@@ -1,11 +1,11 @@
 """Detection pipeline (port of ``scda_tpu/models/detector.py``): the
 training forward with its four losses, and inference with its
-postprocess, plus ``make_anchors`` and the multiscale pooling dispatch
-``_pool_ms``.  An FPN model (:mod:`scda_tpu_torch.models.fpn`) takes the
-same entries: its RPN runs on every pyramid level, each level's
-proposals are one call of this module's ``propose`` (so that a caller
-who wraps the name sees every call, in level order), and the collect
-keeps the best of them.
+postprocess.  Both run the model's layout without knowing it: the RPN
+on each of the model's levels (:meth:`FasterRCNN.levels`), each level's
+proposals one call of this module's ``propose`` (so that a caller who
+wraps the name sees every call, in level order), the collect of the
+best of them where there are several levels (an FPN's), and the
+model's RoI pooling (:meth:`FasterRCNN.pool`).
 
 Every size is fixed by the config and invalid slots are masked, as in
 the JAX package, so the whole forward stays on the device with no host
@@ -19,18 +19,17 @@ values and gradients.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from scda_tpu_torch.config import Config, ProposalConfig
 from scda_tpu_torch.core import boxes as box_ops
 from scda_tpu_torch.models import fpn
-from scda_tpu_torch.models.faster_rcnn import (
-    FasterRCNN, pool_rois, pool_rois_multiscale,
-)
-from scda_tpu_torch.models.rpn import Proposals, propose
+from scda_tpu_torch.models.faster_rcnn import FasterRCNN
+from scda_tpu_torch.models.rpn import Proposals, anchor_grid, propose
 from scda_tpu_torch.models.targets import (
     AnchorTargets, RoiSamples, anchor_targets, proposal_targets,
 )
@@ -39,26 +38,6 @@ from scda_tpu_torch.utils.profile import span
 
 # The ``req`` id of the ``scda.serve`` spans: this process's served batches.
 _requests = itertools.count()
-
-
-def _pool_ms(model: FasterRCNN, feat_fine: torch.Tensor,
-             feat: torch.Tensor, rois: torch.Tensor, mc) -> torch.Tensor:
-    """Multiscale pooling: with ``ms_proj_after_pool`` the lateral
-    projection follows pooling (a step with parameters, so the model's);
-    otherwise ``feat_fine`` arrives projected."""
-    if mc.ms_proj_after_pool:
-        return model.pool_multiscale(feat_fine, feat, rois)
-    return pool_rois_multiscale(feat_fine, feat, rois, mc)
-
-
-def make_anchors(cfg: Config, feat_hw: Tuple[int, int],
-                 device: torch.device | str = "cpu") -> torch.Tensor:
-    """All (h*w*A, 4) anchors of a feature map, built in numpy."""
-    base = box_ops.generate_base_anchors(
-        cfg.anchors.base_size, cfg.anchors.ratios, cfg.anchors.scales)
-    anchors = box_ops.shift_anchors(base, feat_hw[0], feat_hw[1],
-                                    cfg.model.feat_stride)
-    return torch.from_numpy(anchors).to(device)
 
 
 def global_sum(t: torch.Tensor, world) -> torch.Tensor:
@@ -71,37 +50,10 @@ def world_size(world) -> int:
     return 1 if world is None else world.size
 
 
-def _fpn_pyramid(model: FasterRCNN, image: torch.Tensor):
-    """An FPN model's P2 .. P6 (NHWC) of an image batch (B, H, W, 3)."""
-    with span("backbone"):
-        trunk = model.RCNN_base.levels(image.permute(0, 3, 1, 2))
-    with span("fpn"):
-        return model.RCNN_fpn(trunk)
-
-
-def _fpn_rpn(model: FasterRCNN, pyramid, im_info: torch.Tensor, cfg: Config,
-             pc: ProposalConfig):
-    """The shared RPN head on P2 .. P6, one ``propose`` call a level (at
-    ``pc``'s counts), then the collect of ``pc.post_nms_top_n`` an image:
-    (each level's (logits, deltas, anchors), the collected proposals)."""
-    outs = []
-    with span("rpn"):
-        for level, feat in zip(fpn.RPN_LEVELS, pyramid):
-            with span("rpn.level", level=level):
-                cls, bbox = model.rpn_out(feat)
-                outs.append((cls, bbox, fpn.level_anchors(
-                    cfg, level, (feat.shape[1], feat.shape[2]), feat.device)))
-    level_props = [propose(cls, bbox, anchors, im_info, pc)
-                   for cls, bbox, anchors in outs]
-    with span("propose"), span("propose.collect"):
-        props = fpn.collect(level_props, pc.post_nms_top_n)
-    return outs, props
-
-
 class _Proposed(NamedTuple):
     """What both entries take from the backbone and the RPN."""
 
-    maps: tuple                 # what :func:`_pool` reads
+    maps: tuple                 # what ``model.pool`` reads
     feat: torch.Tensor          # TrainForward.base_feat (an FPN's P2)
     rpn_cls: torch.Tensor       # the RPN's logits over every anchor
     rpn_bbox: torch.Tensor      # and its deltas
@@ -111,43 +63,34 @@ class _Proposed(NamedTuple):
 
 def _proposed(model: FasterRCNN, image: torch.Tensor, im_info: torch.Tensor,
               cfg: Config, pc: ProposalConfig) -> _Proposed:
-    """Backbone, RPN and proposals at ``pc``'s counts.  An FPN model runs
-    the RPN on every level and collects (:func:`_fpn_rpn`); the targets
-    and losses see its levels' anchors laid end to end."""
-    mc = cfg.model
-    if fpn.fpn_depth(mc.backbone) is not None:
-        pyramid = _fpn_pyramid(model, image)
-        outs, props = _fpn_rpn(model, pyramid, im_info, cfg, pc)
-        b = image.shape[0]
-        return _Proposed(
-            tuple(pyramid), pyramid[0],
-            torch.cat([c.reshape(b, -1, 2) for c, _, _ in outs], 1),
-            torch.cat([d.reshape(b, -1, 4) for _, d, _ in outs], 1),
-            torch.cat([a for _, _, a in outs]), props)
-    with span("backbone"):
-        if mc.multiscale_roi:
-            feat_fine, feat = model.features_pyramid(image)
-        else:
-            feat_fine, feat = None, model.features(image)
+    """Backbone, RPN and proposals at ``pc``'s counts: the shared RPN
+    head on each of the model's levels, one ``propose`` call a level,
+    and over several levels the collect of ``pc.post_nms_top_n`` an
+    image, whose targets and losses see the levels laid end to end."""
+    ac = cfg.anchors
+    maps, levels = model.levels(image)
+    outs = []
     with span("rpn"):
-        rpn_cls, rpn_bbox = model.rpn_out(feat)
-        anchors = make_anchors(cfg, (feat.shape[1], feat.shape[2]),
-                               feat.device)
-    props = propose(rpn_cls, rpn_bbox, anchors, im_info, pc)
-    return _Proposed((feat_fine, feat), feat, rpn_cls, rpn_bbox, anchors,
-                     props)
-
-
-def _pool(model: FasterRCNN, maps: tuple, rois: torch.Tensor,
-          mc) -> torch.Tensor:
-    """RoI pooling from :func:`_proposed`'s ``maps``: an FPN's levels,
-    both multiscale levels, or the one stride-16 map."""
-    if fpn.fpn_depth(mc.backbone) is not None:
-        return fpn.pool_levels(maps, rois, mc)
-    feat_fine, feat = maps
-    if mc.multiscale_roi:
-        return _pool_ms(model, feat_fine, feat, rois, mc)
-    return pool_rois(feat, rois, None, mc)
+        for lvl in levels:
+            with (contextlib.nullcontext() if lvl.level is None
+                  else span("rpn.level", level=lvl.level)):
+                cls, bbox = model.rpn_out(lvl.map)
+                outs.append((cls, bbox, anchor_grid(
+                    ac.base_size if lvl.base_size is None else lvl.base_size,
+                    ac.ratios, ac.scales, lvl.stride, lvl.map.shape[1],
+                    lvl.map.shape[2], lvl.map.device)))
+    props = [propose(cls, bbox, anchors, im_info, pc)
+             for cls, bbox, anchors in outs]
+    cls, bbox, anchors = zip(*outs)
+    if len(outs) > 1:
+        with span("propose"), span("propose.collect"):
+            props = [fpn.collect(props, pc.post_nms_top_n)]
+        b = image.shape[0]
+        cls = [torch.cat([c.reshape(b, -1, 2) for c in cls], 1)]
+        bbox = [torch.cat([d.reshape(b, -1, 4) for d in bbox], 1)]
+        anchors = [torch.cat(anchors)]
+    return _Proposed(maps, levels[0].map, cls[0], bbox[0], anchors[0],
+                     props[0])
 
 
 class StepGenerators(NamedTuple):
@@ -220,7 +163,7 @@ def forward_train(
 ) -> TrainForward:
     """The supervised training forward: backbone, RPN and its targets,
     proposals (``cfg.train.proposal``, no gradient), roi sampling,
-    pooling (both pyramid levels with ``multiscale_roi``), the head with
+    the model's RoI pooling, the head with
     dropout, and the four losses.  ``draws`` may hold the ``"anchor"``
     and ``"roi"`` uniforms of the target functions (tests inject JAX's).
     With a ``world`` the losses take the global batch's denominators and
@@ -245,7 +188,7 @@ def forward_train(
                                    draws=draws.get("roi"))
     bs, s = samples.labels.shape
     with span("roi"):
-        pooled = _pool(model, p.maps, samples.rois, mc)
+        pooled = model.pool(p.maps, samples.rois)
     with span("head"):
         cls_logits, bbox_deltas = model.roi_head(pooled, train=True,
                                                  generator=rngs.dropout)
@@ -342,15 +285,13 @@ def forward_inference(model: FasterRCNN, image: torch.Tensor,
     """Test-time forward + postprocess.
 
     image (B, H, W, 3) float NHWC canvas and im_info (B, 3), on the
-    model's device.  Proposals (``cfg.test.proposal``) -> RoI-Align (on
-    both pyramid levels with ``model.multiscale_roi``) -> head ->
-    :func:`postprocess`.
+    model's device.  Proposals (``cfg.test.proposal``) -> the model's
+    RoI pooling -> head -> :func:`postprocess`.
     """
-    mc = cfg.model
     with span("serve", req=next(_requests)):
         p = _proposed(model, image, im_info, cfg, cfg.test.proposal)
         with span("roi"):
-            pooled = _pool(model, p.maps, p.props.boxes, mc)
+            pooled = model.pool(p.maps, p.props.boxes)
         with span("head"):
             cls_logits, bbox_deltas = model.roi_head(pooled, train=False)
         return postprocess(p.props, cls_logits, bbox_deltas, im_info, cfg)

@@ -16,46 +16,57 @@ fpn`: ``RCNN_fpn`` beside those five, ``RCNN_top`` its two-layer MLP
 head); the four pooling modes (``align``, ``align_legacy``, ``pool``,
 ``crop``) on grouped or flat rois; multiscale RoI-Align (``multiscale_roi``) with the lateral
 projection before or after pooling (``ms_proj_after_pool``).
+
+The model picks its layout once, when built (one stride-16 map, that map
+and a stride-8 level for pooling, or an FPN's P2 .. P6): the maps it
+runs the RPN on and pools from (:meth:`FasterRCNN.levels`), and how it
+pools (:meth:`FasterRCNN.pool`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scda_tpu_torch.config import ModelConfig
+from scda_tpu_torch.config import ModelConfig, parse_backbone
+from scda_tpu_torch.models import fpn
 from scda_tpu_torch.models.backbones.resnet import (
     FrozenBatchNorm2d, ResNetBackbone, ResNetC4Head,
 )
 from scda_tpu_torch.models.backbones.tiny import TinyBackbone, TinyHead
 from scda_tpu_torch.models.backbones.vgg import VGG16Backbone, VGG16Head
-from scda_tpu_torch.models.fpn import (
-    FPN, FPN_DIM, MLP_HEAD_DIM, TRUNK_CHANNELS, MLPHead, fpn_depth,
-)
 from scda_tpu_torch.models.rpn import RPNHead
 from scda_tpu_torch.ops.roi_ops import (
     contract_axis_weights, roi_align, roi_align_axis_weights,
     roi_align_grouped, roi_align_legacy, roi_align_legacy_grouped, roi_crop,
     roi_pool,
 )
+from scda_tpu_torch.utils.profile import span
 
 _POOLING_MODES = ("align", "align_legacy", "pool", "crop")
-_BACKBONES = ("vgg16", "tiny", "resnet50", "resnet101", "resnet152")
 
 
 def _check_config(cfg: ModelConfig) -> None:
     if cfg.pooling_mode not in _POOLING_MODES:
         raise ValueError(f"unknown pooling_mode {cfg.pooling_mode!r}")
-    if cfg.backbone not in _BACKBONES and fpn_depth(cfg.backbone) is None:
-        raise ValueError(f"unknown backbone {cfg.backbone!r}")
-    if fpn_depth(cfg.backbone) and (cfg.pooling_mode != "align"
-                                    or cfg.multiscale_roi):
+    if parse_backbone(cfg.backbone)[0] == "resnet_fpn" and (
+            cfg.pooling_mode != "align" or cfg.multiscale_roi):
         raise ValueError(f"{cfg.backbone} pools with RoI-Align from its own "
                          f"levels: pooling_mode must be 'align' and "
                          f"multiscale_roi false")
+
+
+class Level(NamedTuple):
+    """A map the RPN runs on."""
+
+    map: torch.Tensor           # (B, h, w, C) NHWC
+    stride: int
+    base_size: Optional[int]    # of its anchors; None: ``anchors.base_size``
+    level: Optional[int]        # its pyramid level, None for a single map
 
 
 class FasterRCNN(nn.Module):
@@ -68,22 +79,21 @@ class FasterRCNN(nn.Module):
         self.dtype = dt
         self.cfg = cfg
         p = cfg.pooling_size
-        if fpn_depth(cfg.backbone):
-            feat_ch = FPN_DIM
-            self.RCNN_base = ResNetBackbone(fpn_depth(cfg.backbone), dtype=dt,
-                                            layer4=True)
-            self.RCNN_fpn = FPN(TRUNK_CHANNELS, FPN_DIM, dtype=dt)
-            self.RCNN_top = MLPHead(FPN_DIM * p * p, MLP_HEAD_DIM, dtype=dt)
-        elif cfg.backbone == "vgg16":
+        family, depth = parse_backbone(cfg.backbone)
+        if family == "resnet_fpn":
+            feat_ch = fpn.FPN_DIM
+            self.RCNN_base = ResNetBackbone(depth, dtype=dt, layer4=True)
+            self.RCNN_fpn = fpn.FPN(dtype=dt)
+            self.RCNN_top = fpn.MLPHead(fpn.FPN_DIM * p * p, dtype=dt)
+        elif family == "vgg16":
             feat_ch = f8_ch = 512
             self.RCNN_base = VGG16Backbone(dtype=dt)
             self.RCNN_top = VGG16Head(feat_ch * p * p, dtype=dt)
-        elif cfg.backbone == "tiny":
+        elif family == "tiny":
             feat_ch, f8_ch = 64, 48
             self.RCNN_base = TinyBackbone(feat_ch, dtype=dt)
             self.RCNN_top = TinyHead(feat_ch * p * p, dtype=dt)
         else:
-            depth = int(cfg.backbone[len("resnet"):])
             feat_ch, f8_ch = 1024, 512
             self.RCNN_base = ResNetBackbone(depth, dtype=dt)
             self.RCNN_top = ResNetC4Head(depth, dtype=dt)
@@ -96,6 +106,51 @@ class FasterRCNN(nn.Module):
         self.RCNN_cls_score = nn.Linear(head_dim, cfg.num_classes)
         self.RCNN_bbox_pred = nn.Linear(
             head_dim, 4 if cfg.class_agnostic else 4 * cfg.num_classes)
+        if family == "resnet_fpn":
+            self._layout = self._pyramid_levels, self._pyramid_pool
+        elif cfg.multiscale_roi:
+            self._layout = self._two_levels, self._two_level_pool
+        else:
+            self._layout = self._one_level, self._one_level_pool
+
+    def levels(self, image: torch.Tensor) -> Tuple[tuple, List[Level]]:
+        """Image (B, H, W, 3) -> (the maps :meth:`pool` reads, the RPN's
+        levels), under the ``backbone`` span (and ``fpn``, a pyramid's)."""
+        return self._layout[0](image)
+
+    def pool(self, maps: tuple, rois: torch.Tensor) -> torch.Tensor:
+        """RoI pooling of grouped rois (B, R, 4) from :meth:`levels`'
+        maps: flat (B * R, P, P, C) for the RoI head."""
+        return self._layout[1](maps, rois)
+
+    def _one_level(self, image):
+        with span("backbone"):
+            feat = self.features(image)
+        return (feat,), [Level(feat, self.cfg.feat_stride, None, None)]
+
+    def _one_level_pool(self, maps, rois):
+        return pool_rois(maps[0], rois, None, self.cfg)
+
+    def _two_levels(self, image):
+        with span("backbone"):
+            maps = self.features_pyramid(image)
+        return maps, [Level(maps[1], self.cfg.feat_stride, None, None)]
+
+    def _two_level_pool(self, maps, rois):
+        if self.cfg.ms_proj_after_pool:
+            return self.pool_multiscale(*maps, rois)
+        return pool_rois_multiscale(*maps, rois, self.cfg)
+
+    def _pyramid_levels(self, image):
+        with span("backbone"):
+            trunk = self.RCNN_base.levels(image.permute(0, 3, 1, 2))
+        with span("fpn"):
+            pyramid = tuple(self.RCNN_fpn(trunk))
+        return pyramid, [Level(p, 2 ** k, 2 ** k, k)
+                         for k, p in zip(fpn.RPN_LEVELS, pyramid)]
+
+    def _pyramid_pool(self, maps, rois):
+        return fpn.pool_levels(maps, rois, self.cfg)
 
     def features(self, image: torch.Tensor) -> torch.Tensor:
         """Image (B, H, W, 3) -> base features (B, H/16, W/16, C)."""

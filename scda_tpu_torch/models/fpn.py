@@ -2,7 +2,9 @@
 ResNet trunk, as Detectron's ``e2e_faster_rcnn_R-101-FPN_1x`` builds it.
 The JAX package has no FPN; this is the port's own architecture, chosen
 by the backbone names ``resnet50_fpn``, ``resnet101_fpn`` and
-``resnet152_fpn``.
+``resnet152_fpn``.  :class:`~scda_tpu_torch.models.faster_rcnn.
+FasterRCNN` builds it from the pieces here and runs its levels and its
+pooling.
 
 * The trunk is :class:`~scda_tpu_torch.models.backbones.resnet.
   ResNetBackbone` with layer4 (``RCNN_base.7``), whose identity tails run
@@ -12,10 +14,11 @@ by the backbone names ``resnet50_fpn``, ``resnet101_fpn`` and
   nearest 2x upsampling and an add, a 3x3 output conv on each sum, and P6
   as P5 subsampled with stride 2 (Detectron's kernel-1 max pool), which
   only the RPN reads.
-* The RPN: one head (``RCNN_rpn``) shared by P2 .. P6, with
-  :func:`level_anchors` at each level's stride; each level's proposals
-  are one call of the proposal layer, then :func:`collect` keeps the top
-  ``post_nms_top_n`` of every level by score, per image.
+* The RPN: one head (``RCNN_rpn``) shared by P2 .. P6, with anchors at
+  each level's stride and of that base size (``models.rpn.anchor_grid``);
+  each level's proposals are one call of the proposal layer, then
+  :func:`collect` keeps the top ``post_nms_top_n`` of every level by
+  score, per image.
 * RoI-Align from the level :func:`roi_levels` assigns each roi
   (:func:`pool_levels`, through kernel K2), then :class:`MLPHead`, two
   fully connected layers of :data:`MLP_HEAD_DIM` (``RCNN_top.fc6``,
@@ -29,9 +32,7 @@ carries, taken only while a profiler records.
 
 from __future__ import annotations
 
-import functools
-import re
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -52,14 +53,6 @@ ROI_CANONICAL_LEVEL = 4            # Detectron FPN.ROI_CANONICAL_LEVEL
 # Image coordinates of the box a level's K2 call gets for a roi of another
 # level: far outside any map, so that RoI-Align drops all its samples.
 NOWHERE = -1.0e6
-
-_BACKBONE = re.compile(r"^resnet(50|101|152)_fpn$")
-
-
-def fpn_depth(backbone: str) -> Optional[int]:
-    """The trunk's depth of an FPN backbone name, None for any other."""
-    m = _BACKBONE.match(backbone)
-    return int(m.group(1)) if m else None
 
 
 def upsample2(x: torch.Tensor) -> torch.Tensor:
@@ -122,23 +115,6 @@ class MLPHead(nn.Module):
         for fc in (self.fc6, self.fc7):
             x = F.relu(F.linear(x, fc.weight.to(dt), fc.bias.to(dt)))
         return x
-
-
-@functools.lru_cache(maxsize=32)
-def _anchors(ratios: tuple, scales: tuple, stride: int, h: int, w: int,
-             device: str) -> torch.Tensor:
-    base = box_ops.generate_base_anchors(stride, ratios, scales)
-    return torch.from_numpy(box_ops.shift_anchors(base, h, w, stride)).to(device)
-
-
-def level_anchors(cfg, level: int, feat_hw: Tuple[int, int],
-                  device) -> torch.Tensor:
-    """The (h * w * A, 4) anchors of pyramid level ``level``: base size and
-    stride 2**level (sizes 32 .. 512 at ``anchors.scales`` (8,)), built
-    once a shape and device and kept."""
-    ac = cfg.anchors
-    return _anchors(tuple(ac.ratios), tuple(ac.scales), 2 ** level,
-                    int(feat_hw[0]), int(feat_hw[1]), str(device))
 
 
 def collect(level_props: Sequence[Proposals], top_n: int) -> Proposals:

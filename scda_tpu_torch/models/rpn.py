@@ -1,5 +1,5 @@
-"""Region Proposal Network: head module and fixed-size proposal layer
-(port of ``scda_tpu/models/rpn.py``).
+"""Region Proposal Network: head module, the anchors of a map and the
+fixed-size proposal layer (port of ``scda_tpu/models/rpn.py``).
 
 The head keeps the reference's parameters: ``RPN_Conv`` (3x3),
 ``RPN_cls_score`` (1x1, channels class-major ``[bg x A, fg x A]``) and
@@ -10,7 +10,8 @@ flattening matches :func:`scda_tpu_torch.core.boxes.shift_anchors`.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +50,20 @@ class RPNHead(nn.Module):
         cls = cls.permute(0, 2, 3, 1).reshape(b, h, w, 2, a).transpose(3, 4)
         bbox = bbox.permute(0, 2, 3, 1).reshape(b, h, w, a, 4)
         return cls.float(), bbox.float()
+
+
+@functools.lru_cache(maxsize=64)
+def anchor_grid(base_size: int, ratios: Tuple[float, ...],
+                scales: Tuple[float, ...], stride: int, h: int, w: int,
+                device: torch.device) -> torch.Tensor:
+    """All (h * w * A, 4) anchors of an (h, w) map of stride ``stride``
+    (:func:`~scda_tpu_torch.core.boxes.shift_anchors` of the base anchors
+    of ``base_size``), on ``device``.  Built once a key and kept, so that
+    a forward copies no anchors to the device: every caller only reads
+    the tensor."""
+    base = box_ops.generate_base_anchors(base_size, ratios, scales)
+    return torch.from_numpy(
+        box_ops.shift_anchors(base, h, w, stride)).to(device)
 
 
 class Proposals(NamedTuple):

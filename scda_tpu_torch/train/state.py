@@ -36,7 +36,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from scda_tpu_torch.config import Config
+from scda_tpu_torch.config import Config, parse_backbone
 from scda_tpu_torch.models.backbones.resnet import resnet_frozen_param_paths
 from scda_tpu_torch.models.backbones.vgg import vgg_frozen_param_paths
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
@@ -48,9 +48,10 @@ def frozen_paths_for(cfg: Config) -> Sequence[str]:
     """Module prefixes of the frozen parameters."""
     if not cfg.train.freeze_pretrained_layers:
         return ()
-    if cfg.model.backbone == "vgg16":
+    family = parse_backbone(cfg.model.backbone)[0]
+    if family == "vgg16":
         return vgg_frozen_param_paths()
-    if cfg.model.backbone.startswith("resnet"):
+    if family in ("resnet", "resnet_fpn"):
         return resnet_frozen_param_paths(cfg.model.resnet_fixed_blocks)
     return ()
 

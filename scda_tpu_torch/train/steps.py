@@ -19,7 +19,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from scda_tpu_torch.config import Config
+from scda_tpu_torch.config import Config, parse_backbone
 from scda_tpu_torch.models.detector import (
     Detections, StepGenerators, forward_inference, forward_train,
 )
@@ -38,7 +38,8 @@ def check_train_config(cfg: Config, device: torch.device) -> None:
     rule is JAX's: refused only with ``model.stem_pallas`` on.
     """
     mc = cfg.model
-    if mc.backbone != "vgg16" or cfg.train.freeze_pretrained_layers:
+    if (parse_backbone(mc.backbone)[0] != "vgg16"
+            or cfg.train.freeze_pretrained_layers):
         return
     if torch.device(device).type == "cuda":
         raise ValueError(

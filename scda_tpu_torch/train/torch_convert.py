@@ -36,6 +36,7 @@ from typing import Any, Dict, Mapping
 
 import torch
 
+from scda_tpu_torch.config import parse_backbone
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
 
 
@@ -71,9 +72,10 @@ def convert_backbone(model: FasterRCNN, state_dict: Mapping[str, torch.Tensor],
     the file lacks (or a converted key the model lacks) and ValueError
     for a shape that differs."""
     model_sd = model.state_dict()
-    if backbone == "vgg16":
+    family = parse_backbone(backbone)[0]
+    if family == "vgg16":
         names = _vgg16_keys(model_sd, state_dict)
-    elif backbone.startswith("resnet"):
+    elif family in ("resnet", "resnet_fpn"):
         names = _resnet_keys(model_sd)
     else:
         raise ValueError(f"no converter for backbone {backbone!r}")
@@ -137,7 +139,7 @@ def export_reference_detector(state_dict: Mapping[str, torch.Tensor],
     (f32 tensors on the CPU).  ``RCNN_c3_proj`` (multiscale pooling), which
     the reference lineage does not have, is left out; other backbones
     have no reference counterpart and raise ValueError."""
-    if backbone != "vgg16" and not backbone.startswith("resnet"):
+    if parse_backbone(backbone)[0] not in ("vgg16", "resnet", "resnet_fpn"):
         raise ValueError(f"no reference exporter for {backbone!r}")
     return {k: v.detach().to("cpu", torch.float32).contiguous()
             for k, v in state_dict.items()

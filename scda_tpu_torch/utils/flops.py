@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from scda_tpu_torch.config import Config
+from scda_tpu_torch.config import Config, parse_backbone
 from scda_tpu_torch.models.backbones.resnet import RESNET_DEPTHS
 from scda_tpu_torch.models.backbones.vgg import VGG16_LAYOUT, _FROZEN_TORCH_IDX
 
@@ -122,20 +122,34 @@ def cls_head_flops(rois: int, feat_dim: int, num_classes: int,
     return dense_flops(rois, feat_dim, out)
 
 
+def _counted_trunk(cfg: Config) -> Tuple[str, int]:
+    """(family, depth) of a backbone these counts cover: ``vgg16`` or a
+    C4 ``resnet``."""
+    mc = cfg.model
+    family, depth = parse_backbone(mc.backbone)
+    if family == "resnet_fpn":
+        raise ValueError(
+            f"{mc.backbone}: the port has no FPN FLOP count; the benchmark "
+            f"counts it in benchmark/metrics/mfu.train_fpn.py")
+    if family not in ("vgg16", "resnet"):
+        raise ValueError(f"no FLOP count for backbone {mc.backbone!r}")
+    return family, depth
+
+
 def inference_flops_per_image(cfg: Config,
                               canvas_hw: Tuple[int, int]) -> float:
     """Forward-only FLOPs for one image at test settings."""
     h, w = canvas_hw
     mc = cfg.model
+    family, depth = _counted_trunk(cfg)
     rois = cfg.test.proposal.post_nms_top_n
-    if mc.backbone == "vgg16":
+    if family == "vgg16":
         total = vgg16_backbone_flops(h, w)
         total += rpn_flops(h // 16, w // 16, 512, mc.rpn_channels)
         total += vgg_head_flops(rois)
         total += cls_head_flops(rois, 4096, mc.num_classes,
                                 mc.class_agnostic)
-    elif mc.backbone.startswith("resnet"):
-        depth = int(mc.backbone.replace("resnet", ""))
+    else:
         total = resnet_backbone_flops(depth, h, w)
         total += rpn_flops(h // 16, w // 16, 1024, mc.rpn_channels)
         total += resnet_head_flops(depth, rois)
@@ -150,38 +164,40 @@ def inference_flops_per_image(cfg: Config,
             else:
                 # c3_proj lateral 1x1 (512 -> 1024) on the stride-8 map.
                 total += conv_flops(h // 8, w // 8, 512, 1024, 1)
-    else:
-        raise ValueError(mc.backbone)
     return total
+
+
+def _trunk_and_rpn(cfg: Config, h: int, w: int):
+    """Forward FLOPs of one image's frozen trunk, trainable trunk and
+    RPN (the whole trunk trainable without ``freeze_pretrained_layers``)."""
+    mc = cfg.model
+    family, depth = _counted_trunk(cfg)
+    fr, tr = vgg16_backbone_flops(h, w, split_frozen=True) \
+        if family == "vgg16" else resnet_backbone_flops(
+            depth, h, w, mc.resnet_fixed_blocks, split_frozen=True)
+    if not cfg.train.freeze_pretrained_layers:
+        fr, tr = 0.0, fr + tr
+    rpn = rpn_flops(h // 16, w // 16,
+                    512 if family == "vgg16" else 1024,
+                    mc.rpn_channels)
+    return fr, tr, rpn
 
 
 def train_flops_per_image(cfg: Config,
                           canvas_hw: Tuple[int, int]) -> float:
     """fwd + ~2x fwd backward for trainable layers, per image."""
-    h, w = canvas_hw
     mc = cfg.model
+    family, depth = _counted_trunk(cfg)
     rois = cfg.train.roi_target.batch_size
-    frozen_on = cfg.train.freeze_pretrained_layers
-    if mc.backbone == "vgg16":
-        fr, tr = vgg16_backbone_flops(h, w, split_frozen=True)
-        if not frozen_on:
-            fr, tr = 0.0, fr + tr
+    if family == "vgg16":
         head = (vgg_head_flops(rois)
                 + cls_head_flops(rois, 4096, mc.num_classes,
                                  mc.class_agnostic))
     else:
-        depth = int(mc.backbone.replace("resnet", ""))
-        fr, tr = resnet_backbone_flops(depth, h, w,
-                                       mc.resnet_fixed_blocks,
-                                       split_frozen=True)
-        if not frozen_on:
-            fr, tr = 0.0, fr + tr
         head = (resnet_head_flops(depth, rois)
                 + cls_head_flops(rois, 2048, mc.num_classes,
                                  mc.class_agnostic))
-    rpn = rpn_flops(h // 16, w // 16,
-                    512 if mc.backbone == "vgg16" else 1024,
-                    mc.rpn_channels)
+    fr, tr, rpn = _trunk_and_rpn(cfg, *canvas_hw)
     return fr + 3.0 * (tr + rpn + head)
 
 
@@ -190,17 +206,7 @@ def scda_step_flops_per_src_image(cfg: Config,
     """One SCDA step: source train step + target fwd (backbone+RPN,
     with backward through the adversarial path ~ 2x fwd on trainable
     layers) + discriminator (negligible)."""
-    h, w = canvas_hw
-    mc = cfg.model
     src = train_flops_per_image(cfg, canvas_hw)
-    fr, tr = vgg16_backbone_flops(h, w, split_frozen=True) \
-        if mc.backbone == "vgg16" else resnet_backbone_flops(
-            int(mc.backbone.replace("resnet", "")), h, w,
-            mc.resnet_fixed_blocks, split_frozen=True)
-    if not cfg.train.freeze_pretrained_layers:
-        fr, tr = 0.0, fr + tr
-    rpn = rpn_flops(h // 16, w // 16,
-                    512 if mc.backbone == "vgg16" else 1024,
-                    mc.rpn_channels)
+    fr, tr, rpn = _trunk_and_rpn(cfg, *canvas_hw)
     tgt = fr + 3.0 * (tr + rpn)
     return src + tgt

@@ -13,7 +13,8 @@ the program's head outputs).  Training (``make_train_step`` over
 ``create_train_state``, three steps): the losses, the first gradient of
 every trainable leaf, the three steps' update of every leaf.  The
 reference follows the program through its proposal calls, whose greedy
-choice among near ties flips on rounding.
+choice among near ties flips on rounding.  The one cached anchor grid, at the
+C4 map's settings and at each pyramid level's, against ``shift_anchors``.
 
 Tolerances: both sides compute in f32, in different orders (the program
 folds the frozen batch norms into K4's twin and sums over the levels
@@ -47,9 +48,11 @@ from benchmark.reference import fpn as R
 from benchmark.reference.precision import BF16, F32
 from benchmark.tests.tiny import tiny_config
 from benchmark.traffic import scenes
+from scda_tpu_torch.core import boxes as box_ops
 from scda_tpu_torch.models import detector as det
 from scda_tpu_torch.models import fpn
 from scda_tpu_torch.models.faster_rcnn import FasterRCNN
+from scda_tpu_torch.models.rpn import anchor_grid
 
 SEED = 2 ** 40 + 11
 RPN_TOL = 1e-4     # RPN logits and deltas, head logits and deltas
@@ -188,6 +191,25 @@ def test_the_collect_is_the_references_exactly(served):
     for collect in (fpn.collect, R.collect):
         got = collect([one, two], 3)
         assert torch.equal(got.boxes[0, :, 0], torch.tensor([0.0, 0.0, 1.0]))
+
+
+@pytest.mark.parametrize("base_size, scales, stride", [
+    (16, (8.0, 16.0, 32.0), 16),                               # the C4 map
+    *[(2 ** k, (8.0,), 2 ** k) for k in fpn.RPN_LEVELS]])      # P2 .. P6
+def test_one_cached_anchor_grid_serves_every_level(base_size, scales,
+                                                      stride):
+    """``models.rpn.anchor_grid`` is ``shift_anchors``' grid bit for bit,
+    and the same tensor on a second call."""
+    ratios = (0.5, 1.0, 2.0)
+    h, w = 1 + 512 // stride, 1024 // stride
+    key = (base_size, ratios, scales, stride, h, w, torch.device("cpu"))
+    got = anchor_grid(*key)
+    want = box_ops.shift_anchors(
+        box_ops.generate_base_anchors(base_size, ratios, scales), h, w,
+        stride)
+    assert got.shape == (h * w * len(ratios) * len(scales), 4)
+    assert torch.equal(got, torch.from_numpy(want))
+    assert anchor_grid(*key) is got
 
 
 def test_roi_levels_follow_detectrons_rule():

@@ -42,7 +42,9 @@ from scda_tpu_torch import bridge
 from scda_tpu_torch.evals.detect import detection_match_rate
 from scda_tpu_torch.models import detector as tdet
 from scda_tpu_torch.models.backbones.vgg import VGG16_LAYOUT
-from scda_tpu_torch.models.faster_rcnn import build_model, pool_rois
+from scda_tpu_torch.models.faster_rcnn import (
+    FasterRCNN, build_model, pool_rois,
+)
 from scda_tpu_torch.models.rpn import propose
 from test_torch_resnet import resnet_trees
 
@@ -145,25 +147,17 @@ class _FedJax:
         return self.out[method]
 
 
-class _FedTorch:
-    def __init__(self, feat, rpn, head, f8=None, pooled=None):
-        self.feat, self.rpn, self.head = feat, rpn, head
-        self.f8, self.pooled = f8, pooled
-
-    def features(self, image):
-        return self.feat
-
-    def features_pyramid(self, image):
-        return self.f8, self.feat
-
-    def pool_multiscale(self, f8, feat, rois):
-        return self.pooled
-
-    def rpn_out(self, feat):
-        return self.rpn
-
-    def roi_head(self, pooled, train=False):
-        return self.head
+def _fed_torch(cfg, feat, rpn, head, f8=None, pooled=None):
+    """A port model of ``cfg``'s layout whose stages return given
+    outputs; its levels and pooling run as built, on the given maps."""
+    with torch.device("meta"):
+        model = FasterRCNN(cfg.model, cfg.anchors.num_anchors)
+    model.features = lambda image: feat
+    model.features_pyramid = lambda image: (f8, feat)
+    model.pool_multiscale = lambda f8, feat, rois: pooled
+    model.rpn_out = lambda feat_: rpn
+    model.roi_head = lambda pooled_, train=False: head
+    return model
 
 
 def _t(x):
@@ -287,8 +281,7 @@ def test_pooled_rois_same_inputs(run):
         fine = (area.sqrt() < mc.ms_fine_threshold)[_t(run["props"].valid)]
         assert 0 < int(fine.sum()) < fine.numel()
         with torch.no_grad():
-            out = tdet._pool_ms(run["model"], _t(run["f8"]), _t(run["feat"]),
-                                boxes, mc)
+            out = run["model"].pool((_t(run["f8"]), _t(run["feat"])), boxes)
     else:
         out = pool_rois(_t(run["feat"]), boxes, None, mc)
     np.testing.assert_allclose(_np(out), np.asarray(run["pooled"]),
@@ -313,8 +306,8 @@ def test_roi_head_same_pooled(run):
 
 def test_postprocess_same_logits(run):
     f8 = None if run["f8"] is None else _t(run["f8"])
-    fed = _FedTorch(_t(run["feat"]), tuple(map(_t, run["rpn"])),
-                    tuple(map(_t, run["head"])), f8, _t(run["pooled"]))
+    fed = _fed_torch(run["cfg"], _t(run["feat"]), tuple(map(_t, run["rpn"])),
+                     tuple(map(_t, run["head"])), f8, _t(run["pooled"]))
     out = tdet.forward_inference(fed, _t(run["image"]), _t(run["im_info"]),
                                  run["cfg"])
     ref = run["fed"]

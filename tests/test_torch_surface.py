@@ -16,7 +16,9 @@ package on the CPU (f32), on the same numpy-seeded inputs:
     test stays small) and a torchvision ResNet-50 file; the
     ``weights_only`` refusal and ``allow_unsafe_pickle``;
   * ``utils/flops.py`` equal to JAX's for every preset and every
-    ``cfgs/*.yml``; ``draw_detections`` bit-equal to JAX's;
+    ``cfgs/*.yml``; the port's one backbone-name parser, and the FLOP
+    counts' refusal of the names they do not count;
+    ``draw_detections`` bit-equal to JAX's;
   * the CLIs end to end on ``tiny``: ``demo``, ``test_net`` with each new
     flag (its ``--use_07_metric``, ``--iou_sweep`` and
     ``--coco_protocol`` numbers equal the JAX evaluators' on the same
@@ -403,6 +405,42 @@ def test_flops_equal_jax_for_every_config():
         assert getattr(tflops, name)(7, 9, 3, 5, 3, 2) == \
             getattr(jflops, name)(7, 9, 3, 5, 3, 2) if name == "conv_flops" \
             else getattr(tflops, name)(7, 9, 3) == getattr(jflops, name)(7, 9, 3)
+
+
+@pytest.mark.parametrize("name, trunk", [
+    ("vgg16", ("vgg16", None)), ("tiny", ("tiny", None)),
+    ("resnet50", ("resnet", 50)), ("resnet101", ("resnet", 101)),
+    ("resnet152", ("resnet", 152)), ("resnet50_fpn", ("resnet_fpn", 50)),
+    ("resnet101_fpn", ("resnet_fpn", 101)),
+    ("resnet152_fpn", ("resnet_fpn", 152)),
+    ("resnet34", None), ("resnet101_fp", None), ("vgg", None)])
+def test_the_backbone_name_is_parsed_in_one_place(name, trunk):
+    """``config.parse_backbone``: each accepted name's (family, depth),
+    a ValueError listing the accepted names for any other; the FLOP
+    counts refuse an FPN with a ValueError that says where the
+    benchmark counts it."""
+    from scda_tpu_torch import config as tcfg
+    from scda_tpu_torch.utils import flops as tflops
+
+    if trunk is None:
+        with pytest.raises(ValueError, match="accepted: vgg16, tiny, "
+                                             "resnet50, .*, resnet152_fpn"):
+            tcfg.parse_backbone(name)
+        return
+    assert tcfg.parse_backbone(name) == trunk
+    cfg = tcfg.replace_path(tcfg.get_config("vgg16"), "model.backbone", name)
+    for fn in (tflops.inference_flops_per_image,
+               tflops.train_flops_per_image,
+               tflops.scda_step_flops_per_src_image):
+        if trunk[0] == "resnet_fpn":
+            with pytest.raises(ValueError, match="no FPN FLOP count.*"
+                                                 "mfu.train_fpn"):
+                fn(cfg, (512, 1024))
+        elif trunk[0] == "tiny":
+            with pytest.raises(ValueError, match="no FLOP count"):
+                fn(cfg, (512, 1024))
+        else:
+            assert fn(cfg, (512, 1024)) > 0
 
 
 # ------------------------------------------------------------- CLIs
